@@ -1,8 +1,8 @@
-"""16M-body analysis wall time (VERDICT r4 weak #4 closure).
+"""16M-body analysis wall time.
 
 Builds a cosmology box ON THE DEVICE (Zel'dovich ICs, a few periodic PM
 steps so structure exists), then times the three `cli analyze` legs as
-the round-5 device-resident pipeline runs them:
+the device-resident pipeline runs them:
 
   summary   — structural statistics (jnp on device slices; results-only
               readback)
@@ -11,8 +11,8 @@ the round-5 device-resident pipeline runs them:
               analysis.quantize_for_fof) + host C union-find + catalog
 
 Usage: python benchmarks/analyze_bench.py [--n 16777216] [--steps 50]
-       [--grid 128] [--fof-exact]  (adds the old full-fetch FoF for
-       comparison — expect minutes through the relay at 16M)
+       [--grid 128] [--fof-exact]  (adds the full-fetch FoF for
+       comparison)
 """
 
 from __future__ import annotations
@@ -24,7 +24,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
 
 
 def main() -> int:
@@ -38,16 +37,13 @@ def main() -> int:
     ap.add_argument("--platform", default="auto")
     args = ap.parse_args()
 
-    if args.platform != "auto":
-        import jax
-
-        jax.config.update("jax_platforms", args.platform)
-    else:
-        from nbody3d_tpu.utils.devwait import wait_for_device
-
-        wait_for_device(float(os.environ.get("NBODY_BENCH_WAIT_S", "1800")))
-
     import jax
+
+    if args.platform != "auto":
+        jax.config.update("jax_platforms", args.platform)
+    from nbody3d_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from nbody3d_tpu import analysis
     from nbody3d_tpu.config import SimConfig

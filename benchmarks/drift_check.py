@@ -1,22 +1,22 @@
-"""BASELINE acceptance check: conservation drift over 10k steps.
+"""Acceptance check (BASELINE.md): conservation drift over 10k steps.
 
-Runs the N=16k Plummer validation config (BASELINE config #2) for 10,000
-steps at the reference dt/G and gates conserved quantities against the
-PER-SOLVER acceptance matrix (VERDICT r2 #6 — no gate that "fails by
-design"; every shipped solver has an executable bound):
+Runs the N=16k Plummer validation config for 10,000 steps at the
+reference dt/G and gates conserved quantities against the PER-SOLVER
+acceptance matrix (no gate that "fails by design"; every shipped solver
+has an executable bound):
 
   gate    energy   momentum  angular   rationale
   -----   ------   --------  -------   ---------
   exact   1e-3     1e-5      1e-5      pair-symmetric force: conservation
-                                       at f32 reduction order (exact /
-                                       fast / sym / jnp modes)
+                                       at f32 reduction order (the
+                                       direct kernel and the jnp path)
   p3m     1e-3     1e-5      1e-5      same class: mutual-symmetric
                                        truncation + heavy split keep
                                        pair antisymmetry; the shipped
                                        gate config (grid=64, nbr_k=64,
                                        zero overflow at N=16k) removes
-                                       the force-error random walk that
-                                       the r2 budget-starved config had
+                                       the force-error random walk of a
+                                       budget-starved config
   p3m-periodic 1e-3 1e-5    —         Ewald-class torus gravity
                                        (uniform-box preset; energy =
                                        the f64 Ewald potential,
@@ -34,9 +34,6 @@ design"; every shipped solver has an executable bound):
                                        stay exact — the standard
                                        cosmological-code normalization
                                        (KE / Layzer-Irvine class).
-                                       Measured r3: dE=6.5 on K1=8559
-                                       over 10k steps = 7.6e-4 ✓ (vs
-                                       |E0|=154 it would read 4.2e-2)
   pm      —        1e-5      —         energy/angular EXCLUDED by
                                        design: the mesh grid-smooths
                                        close encounters (a collapsing
@@ -45,15 +42,15 @@ design"; every shipped solver has an executable bound):
                                        bug); momentum still conserves
                                        because CIC deposit/gather match
 
-A pair-symmetric force conserves P and L to float reduction order; the
-fast/sym MXU paths achieve this via the shared-weight schedule + self-pair
-index mask + block-centered limb operands (Morton-ordered every 64 steps).
+A pair-symmetric force conserves P and L to float reduction order.
 
-Usage: python benchmarks/drift_check.py [exact|fast|sym|jnp|pm|p3m] [n] [steps]
-           [--gate exact|pm|p3m] [--grid M] [--nbr-k K] [--stress]
-``--gate`` defaults to the solver family of the mode; ``--stress`` runs
-P3M in the round-2 budget-starved configuration (every tile overflowing
-the neighbor budget — exercises mutual-k truncation, not gated on energy).
+Usage: python benchmarks/drift_check.py [exact|jnp|pm|p3m|p3m-periodic] [n]
+           [steps] [--gate exact|pm|p3m] [--grid M] [--nbr-k K] [--stress]
+``exact`` runs the default backend (the direct kernel on the GPU); ``jnp``
+the plain sum.  ``--gate`` defaults to the solver family of the mode;
+``--stress`` runs P3M in a budget-starved configuration (every tile
+overflowing the neighbor budget — exercises mutual-k truncation, not
+gated on energy).
 Exit status is nonzero on any bound violation.
 """
 
@@ -68,7 +65,6 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
 
 # The acceptance matrix: None = excluded for that solver class (documented
 # in the module docstring and BASELINE.md).
@@ -88,8 +84,7 @@ GATES = {
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("mode", nargs="?", default="exact",
-                    choices=["exact", "fast", "sym", "jnp", "pm", "p3m",
-                             "p3m-periodic"])
+                    choices=["exact", "jnp", "pm", "p3m", "p3m-periodic"])
     ap.add_argument("n", nargs="?", type=int, default=16384)
     ap.add_argument("steps", nargs="?", type=int, default=10000)
     ap.add_argument("--gate", choices=sorted(GATES),
@@ -106,7 +101,7 @@ def main() -> int:
                     help="p3m-periodic: disable force-average interlacing "
                          "(A/B probe for the drift driver)")
     ap.add_argument("--stress", action="store_true",
-                    help="P3M round-2 starved config (nbr_k=32 at grid=64: "
+                    help="P3M starved config (nbr_k=32 at grid=64: "
                          "every tile overflows; momentum/angular still gate)")
     ap.add_argument("--integrator", default="verlet",
                     choices=["verlet", "euler", "yoshida4"],
@@ -124,7 +119,9 @@ def main() -> int:
 
     from nbody3d_tpu.config import SimConfig
     from nbody3d_tpu.engine import Simulation
+    from nbody3d_tpu.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     if mode == "jnp":
         config = SimConfig(backend="jnp")
     elif mode == "pm":
@@ -133,10 +130,9 @@ def main() -> int:
         # Ewald-class P3M on the torus: cold uniform box, early infall
         # (10k reference-dt steps ~ 0.2 dynamical times at L=10), energy
         # measured by the Ewald potential (ops/ewald.py).  Shipped gate
-        # config: sigma_cells=2.0 + force-average interlacing — median
-        # force error 6.9e-5 vs the Ewald oracle (the r3 defaults
-        # sc=1.5, no interlace measured 1.6e-3 and drifted 8e-3 over the
-        # gate; the mesh assignment aliasing was the drift driver).
+        # config: sigma_cells=2.0 + force-average interlacing (the
+        # defaults sc=1.5 without interlacing let the mesh assignment
+        # aliasing drive the drift).
         config = SimConfig(
             method="p3m", pm_grid=args.grid, p3m_nbr_k=args.nbr_k or 32,
             p3m_sigma_cells=2.0, mesh_interlace=not args.no_interlace,
@@ -151,7 +147,7 @@ def main() -> int:
         if args.stress:
             gate = dict(gate, energy=None)  # truncation random walk: documented
     else:
-        config = SimConfig(backend="pallas", force_mode=mode, morton_every=64)
+        config = SimConfig()
     config = config.replace(
         integrator=args.integrator, dt=config.dt * args.dt_scale
     )

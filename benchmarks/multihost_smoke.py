@@ -1,18 +1,18 @@
 """Multi-HOST smoke test: the sharded step over jax.distributed (DCN analog).
 
-SURVEY §5.8's scale-out story is "same SPMD program over DCN via
+SURVEY §5.8's scale-out story is "same SPMD program across hosts via
 ``jax.distributed.initialize``" — this harness actually executes it on one
 machine: it spawns N worker processes (default 2), each owning 4 virtual
 CPU devices, connects them through the JAX coordination service + Gloo
 CPU collectives, and runs the particle-sharded step over the global
 8-device mesh — ``ppermute``/``all_gather``/``psum`` hops now crossing
-PROCESS boundaries, the transport the real multi-host TPU path uses over
-DCN.  Each worker checks its addressable output shards against a
-locally-computed single-device reference step.
+PROCESS boundaries, as they cross hosts in a multi-host run.  Each worker
+checks its addressable output shards against a locally-computed
+single-device reference step.
 
-Covers every multi-chip schedule (VERDICT r2 #5): strategies ring /
-ringsym / gather / 2d for the direct solver, plus the grid solvers
-(--method pm / p3m) whose wire pattern is a mass-grid psum.
+Covers every multi-device schedule: strategies ring / gather / 2d for the
+direct solver, plus the grid solvers (--method pm / p3m) whose wire
+pattern is a mass-grid psum.
 
 Usage: python benchmarks/multihost_smoke.py [--nproc 2] [--strategy ring]
        [--method direct] (re-invokes itself with --worker <pid> internally)
@@ -36,8 +36,7 @@ G = 1e-4
 
 
 def _free_port() -> int:
-    """Ask the OS for a free TCP port (ADVICE r2: hardcoded ports collide
-    with parallel CI runs / leftover workers)."""
+    """Ask the OS for a free TCP port."""
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
@@ -137,7 +136,7 @@ def main() -> int:
     ap.add_argument("--nproc", type=int, default=2)
     ap.add_argument(
         "--strategy", default="ring",
-        choices=["ring", "ringsym", "gather", "2d"],
+        choices=["ring", "gather", "2d"],
     )
     ap.add_argument("--method", default="direct", choices=["direct", "pm", "p3m"])
     ap.add_argument(

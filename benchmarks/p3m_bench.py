@@ -3,7 +3,7 @@
 P3M keeps PM's O(N + M³ log M) scaling but restores ~1e-3 direct-solver
 force accuracy in clustered cores via the sorted-tile short-range
 correction (ops/p3m.py).  This harness times full P3M steps (one jitted
-scan chunk, honest device_get sync) at a sweep of N and prints ms/step,
+scan chunk, synced with block_until_ready) at a sweep of N and prints ms/step,
 steps/s, and the *equivalent* direct-pair rate (N²·steps/s), plus a
 clustered-system force-accuracy probe vs the jnp direct oracle.
 
@@ -16,7 +16,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
 
 import jax
 import jax.numpy as jnp
@@ -33,7 +32,7 @@ def galaxy_state(n, seed=0):
     from nbody3d_tpu.models.registry import make_preset
 
     pos_mass, vel, _ = make_preset("two-galaxy", seed=seed, G=1e-4, n=n)
-    return init_state(pos_mass, vel, n_pad=-(-pos_mass.shape[0] // 2048) * 2048)
+    return init_state(pos_mass, vel, n_pad=-(-pos_mass.shape[0] // 256) * 256)
 
 
 def box_state(n, box, seed=0):
@@ -43,7 +42,7 @@ def box_state(n, box, seed=0):
     pos_mass, vel, _ = make_preset(
         "uniform-box", seed=seed, G=1e-4, n=n, box_size=box
     )
-    return init_state(pos_mass, vel, n_pad=-(-pos_mass.shape[0] // 2048) * 2048)
+    return init_state(pos_mass, vel, n_pad=-(-pos_mass.shape[0] // 256) * 256)
 
 
 def bench_n(n, grid, nbr_k, steps=10, reps=3, boundary="isolated",
@@ -58,12 +57,12 @@ def bench_n(n, grid, nbr_k, steps=10, reps=3, boundary="isolated",
     step = make_step_fn(cfg, n_pad, n)
     run = make_scan_fn(step)
     state = run(state, cfg.dt, cfg.G, steps)  # warm (same chunk length)
-    jax.device_get(state.pos_mass[0, 0])
+    jax.block_until_ready(state)
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
         state = run(state, cfg.dt, cfg.G, steps)
-        jax.device_get(state.pos_mass[0, 0])
+        jax.block_until_ready(state)
         times.append((time.perf_counter() - t0) / steps)
     med = sorted(times)[len(times) // 2]
     eq = n * n / med / 1e9
@@ -105,6 +104,9 @@ def accuracy_probe(grid, nbr_k, n=16384):
 
 
 def main():
+    from nbody3d_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--grid", type=int, default=128)
     ap.add_argument("--nbr-k", type=int, default=32)

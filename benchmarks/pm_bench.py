@@ -1,8 +1,8 @@
 """Particle-mesh throughput vs the direct solver.
 
-PM is O(N + M³ log M); the direct sym kernel is O(N²).  This harness
+PM is O(N + M³ log M); the direct kernel is O(N²).  This harness
 times full PM steps (deposit + FFT Poisson + gather + Verlet, one jitted
-scan chunk, honest device_get sync) at a sweep of N, prints steps/s plus
+scan chunk, synced with block_until_ready) at a sweep of N, prints steps/s plus
 the *equivalent* direct-pair rate (N²·steps/s — what an all-pairs kernel
 would have to sustain to match), and runs a far-field accuracy probe
 against the jnp direct oracle at the smallest N.
@@ -16,7 +16,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
 
 import jax
 import jax.numpy as jnp
@@ -46,12 +45,12 @@ def bench_n(n, grid, steps=10, reps=3):
     run = make_scan_fn(step)
     state = random_state(n)
     state = run(state, cfg.dt, cfg.G, steps)  # warm (same chunk length)
-    jax.device_get(state.pos_mass[0, 0])
+    jax.block_until_ready(state)
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
         state = run(state, cfg.dt, cfg.G, steps)
-        jax.device_get(state.pos_mass[0, 0])
+        jax.block_until_ready(state)
         times.append((time.perf_counter() - t0) / steps)
     med = sorted(times)[len(times) // 2]
     eq = n * n / med / 1e9
@@ -83,6 +82,9 @@ def accuracy_probe(grid):
 
 
 def main():
+    from nbody3d_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--grid", type=int, default=128)
     ap.add_argument("--ns", default="262144,2097152,16777216")

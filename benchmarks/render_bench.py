@@ -1,4 +1,4 @@
-"""Renderer throughput at reference-scale N (VERDICT r1 weak #5 closure).
+"""Renderer throughput at reference-scale N.
 
 Times a close-camera frame of the reference's maximum UI-reachable N
 (~500k bodies, index.html:68-75) — the round-1 worst case (minutes per
@@ -29,19 +29,18 @@ def main() -> int:
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--resolve", default="auto",
-                    choices=["auto", "native", "numpy", "device", "pallas"],
-                    help="'pallas' = full-precision on-accelerator Pallas "
-                         "resolve; 'device' = the quantized XLA scatter-min "
-                         "(both: only the framebuffer crosses the wire)")
+                    choices=["auto", "native", "numpy", "device"],
+                    help="'device' = the quantized on-accelerator "
+                         "scatter-min (only the framebuffer leaves the "
+                         "device)")
     ap.add_argument("--reps", type=int, default=1,
                     help="frames per camera pose (last rep reported — "
                          "first pays jit compile for the device resolve)")
     args = ap.parse_args()
 
-    if args.resolve in ("device", "pallas") or args.n >= 1 << 20:
-        from nbody3d_tpu.utils.devwait import wait_for_device
+    from nbody3d_tpu.utils.compile_cache import enable_compile_cache
 
-        wait_for_device(float(os.environ.get("NBODY_BENCH_WAIT_S", "1800")))
+    enable_compile_cache()
 
     rng = np.random.default_rng(0)
     # two-galaxy-ish cloud with reference masses incl. heavy centrals
@@ -52,8 +51,8 @@ def main() -> int:
     pos_mass[0, 3] = pos_mass[1, 3] = 1e7
     vel = rng.normal(scale=5.0, size=(args.n, 4)).astype(np.float32)
 
-    if args.resolve in ("device", "pallas"):
-        # The on-accelerator resolves exist for state that already lives
+    if args.resolve == "device":
+        # The on-accelerator resolve exists for state that already lives
         # on the device (the engine renders mid-run sim state); place the
         # arrays there once so the timed frame matches that pipeline
         # instead of paying a per-frame host->device copy of 20 B/body.

@@ -1,8 +1,8 @@
-"""Throughput across the BASELINE scale ladder (engine/scan methodology).
+"""Direct-sum throughput across the scale ladder (engine/scan methodology).
 
-Measures the headline sym mode (with its automatic fast fallback beyond
-SYM_MAX_N) at reference-relevant sizes: 16k validation, the reference
-default 40,002, the 256k single-chip config, and 2M.
+Measures the default backend (the direct kernel on the GPU) at
+reference-relevant sizes: 16k validation, the reference default 40,002,
+the 256k single-device config, and 2M.
 
 Usage: python benchmarks/scale_sweep.py [sizes...]
 """
@@ -15,19 +15,20 @@ import statistics
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
-
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main() -> int:
     from nbody3d_tpu.config import SimConfig
     from nbody3d_tpu.engine import Simulation
+    from nbody3d_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     sizes = [int(a) for a in sys.argv[1:]] or [16384, 40002, 262144, 2097152]
     results = []
     for n in sizes:
-        config = SimConfig(backend="pallas", force_mode="sym", morton_every=64)
+        config = SimConfig()
         sim = Simulation.from_preset("uniform-sphere", config, n=n)
         # keep total pair-work comparable across sizes
         chunk = max(1, min(50, int(3e11 / max(sim.pair_interactions_per_step, 1))))

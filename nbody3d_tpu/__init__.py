@@ -1,21 +1,21 @@
-"""nbody3d_tpu — a TPU-native N-body simulation framework.
+"""nbody3d_tpu — an N-body simulation framework in JAX.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
-``huj31415/nbody3d-webgpu`` (reference mounted at ``/root/reference``):
+``huj31415/nbody3d-webgpu``:
 direct-sum softened gravitational dynamics (Plummer softening, frame-shifted
 velocity Verlet), procedural multi-galaxy initial conditions, full-state
 checkpoint import/export, step / pairwise-interaction-rate profiling, and a
 decoupled headless point-splat renderer.
 
-Architecture (TPU-first, NOT a port):
+Architecture (NOT a port):
 
 - the reference's tiled WGSL compute pass (``nbody3d.js:218-294``) becomes a
-  Pallas kernel streaming position/mass tiles through VMEM with on-chip
-  accumulation and fused integration (:mod:`nbody3d_tpu.ops.pallas_force`);
+  Triton-route Pallas kernel that keeps target blocks in registers and
+  loops over source tiles (:mod:`nbody3d_tpu.ops.pallas_force`);
 - the per-frame loop (``nbody3d.js:439-506``) becomes ``jax.lax.scan`` with
-  donated HBM-resident particle state (:mod:`nbody3d_tpu.engine`);
-- scaling beyond one chip shards particles over a ``jax.sharding.Mesh`` and
-  ring-exchanges source shards over ICI with ``lax.ppermute``
+  donated device-resident particle state (:mod:`nbody3d_tpu.engine`);
+- scaling beyond one device shards particles over a ``jax.sharding.Mesh``
+  and ring-exchanges source shards with ``lax.ppermute``
   (:mod:`nbody3d_tpu.parallel`);
 - the WebGPU billboard render path (``nbody3d.js:313-415``) becomes a
   headless point-splat rasterizer decoupled from physics

@@ -3,7 +3,7 @@
 The reference keeps its tunables in three tiers (SURVEY §5.6): compile-time
 constants (``TILE_SIZE`` at ``nbody3d.js:4``, softening at ``nbody3d.js:234``),
 UI-bound live params (dt and G log sliders, ``util.js:38-54``), and the
-per-frame uniform block (``nbody3d.js:16-34``).  The TPU-native equivalent is
+per-frame uniform block (``nbody3d.js:16-34``).  The equivalent here is
 one frozen dataclass: static fields participate in the jit cache key, while
 ``dt`` and ``G`` remain *runtime* scalars threaded through the step function so
 they can change without recompilation (matching the reference's
@@ -61,8 +61,8 @@ class SimConfig:
     integrator: str = "verlet"
 
     # Force algorithm.  "direct" is the reference's exact O(N^2) all-pairs
-    # sum (nbody3d.js:218-294) via the kernels selected by backend /
-    # force_mode below.  "pm" is the particle-mesh FFT solver
+    # sum (nbody3d.js:218-294) via the implementation selected by backend
+    # below.  "pm" is the particle-mesh FFT solver
     # (ops/pm.py) — O(N + M^3 log M), grid-smoothed below ~3 cells, a
     # beyond-reference capability for very large diffuse systems.  "p3m"
     # adds PM's erf-split short-range correction (ops/p3m.py): ~1e-3
@@ -110,56 +110,16 @@ class SimConfig:
     # when cosmology="lcdm".
     omega_lambda: float = 0.7
 
-    # Kernel selection / shape.  Blocks tuned on v5e at N=256k
-    # (benchmarks/fast_tune.py): 2048x2048 is within 1% of the best
-    # measured for both modes; throughput plateaus beyond.
-    backend: str = "auto"  # "auto" | "pallas" | "jnp"
-    block_target: int = 2048  # target-body rows per Pallas grid step (max)
-    block_source: int = 2048  # source-body lanes per streamed tile (max)
-    # "exact": all-VPU f32, ~1 ulp vs oracle.
-    # "fast": rectangular MXU bf16-weight schedule (also the multi-chip
-    #         ring's per-hop kernel).
-    # "sym":  single-chip symmetric (Newton-3) schedule — each unordered
-    #         block pair's weight chain evaluated once, two MXU dots
-    #         deliver both directions; the throughput headline.
-    force_mode: str = "exact"
-    # Re-sort bodies along the Morton (Z-order) curve every this many steps
-    # (0 = never).  Physics is order-invariant; compact blocks shrink the
-    # centered-limb accumulation error of the sym/fast MXU paths
-    # (ops/morton.py).  Applied at scan-chunk boundaries by the engine.
-    morton_every: int = 0
-    # Fusing Verlet into the force kernel is the reference's design
-    # (nbody3d.js:274-290) but loses on TPU: the multi-output revisited
-    # epilogue halves kernel throughput (727 vs 365 ms/step at N=256k on
-    # v5e) while fusion saves only ~0.1 ms of O(N) HBM traffic — the
-    # all-pairs kernel is compute-bound, not bandwidth-bound.  Kept as an
-    # option; default off.
-    fuse_integrate: bool = False
-    # Fuse the sym schedule's EPILOGUE instead (round 5): the raw limb
-    # accumulators of the 3-call Newton-3 schedule feed one O(N) Pallas
-    # pass doing the accumulator adds/transposes, the un-centering limb
-    # combine, AND the Verlet update — no XLA glue between the force
-    # kernels and the next state (ops/pallas_force.py::
-    # sym_verlet_step_pallas).  Unlike fuse_integrate this does NOT touch
-    # the O(N^2) kernels, so it keeps their throughput; default on.
-    # Applies to backend=pallas, force_mode=sym, integrator=verlet,
-    # single-chip, nt >= 2; other paths ignore it.
-    fuse_epilogue: bool = True
-    # Gradient precision of the hand-written direct-force VJP
-    # (ops/force_vjp.py).  "precise" (default): in-kernel 2-limb split of
-    # the MXU weight matrices — f32-grade gradients (~4e-6 median vs the
-    # f64 oracle) at ~1.4x the fast mode's backward cost; "fast": plain
-    # bf16 weights — the forward's ~2e-3 weight-noise class at full
-    # speed.  Both gated on hardware by benchmarks/grad_bench.py.
-    grad_precision: str = "precise"
+    # Direct-force implementation (ops/step.py resolve_backend): "auto"
+    # = the Triton kernel on the GPU, the plain jnp sum elsewhere;
+    # "pallas" = the kernel (GPU only); "pallas_interpret" = the kernel in
+    # the Pallas interpreter (tests); "jnp" = the plain sum.
+    backend: str = "auto"
 
-    # Multi-chip.
+    # Multi-device.
     mesh_axis: str = "x"
-    # "ring": 1-D ppermute rotation; "ringsym": Newton-3 half ring — each
-    # unordered shard pair computed once, source-side partials returned on
-    # a backward carry (half the compute at equal wire bytes; ring+sym
-    # auto-upgrades to this); "gather": all_gather sources (small N);
-    # "2d": grid force decomposition over a (row, col) mesh — per-step
+    # "ring": 1-D ppermute rotation; "gather": all_gather sources (small
+    # N); "2d": grid force decomposition over a (row, col) mesh — per-step
     # traffic ~2N/sqrt(D) vs the ring's ~N (parallel/sharded.py).
     strategy: str = "ring"
 
@@ -176,6 +136,8 @@ class SimConfig:
 
     @classmethod
     def from_json(cls, s: str) -> "SimConfig":
+        """Parse :meth:`to_json` output.  Unknown keys are dropped, so
+        checkpoints written with options that no longer exist still load."""
         d = json.loads(s)
         d.pop("__class__", None)
         known = {f.name for f in dataclasses.fields(cls)}

@@ -1,7 +1,7 @@
 """Zel'dovich-approximation initial conditions on the periodic box.
 
 The reference generates galaxies (``nbody3d.js:100-175``); the periodic
-solvers added in round 3 (`--boundary periodic`, Ewald-class P3M/PM on
+solvers (`--boundary periodic`, Ewald-class P3M/PM on
 the torus) make a cosmological-style workload meaningful, and this
 module seeds it the standard way: a Gaussian random overdensity field
 with a target power spectrum ``P(k)``, realized as particle
@@ -31,7 +31,7 @@ here — generation is not the hot path):
 Spectra: ``spectrum="power-law"`` is ``P(k) = amp * (k / k_f)^index``
 with ``k_f = 2 pi / L`` the fundamental; ``"eh98"`` is the physical
 flat-ΛCDM shape through the Eisenstein-Hu (1998) no-wiggle transfer
-function (:func:`eh98_transfer`, round 5); any callable ``pk(k_array)
+function (:func:`eh98_transfer`); any callable ``pk(k_array)
 -> P_array`` (in volume units, e.g. a tabulated transfer function) is
 accepted.  Modes above the mesh Nyquist are zeroed (anti-aliasing of
 the corner modes), as is DC.

@@ -12,7 +12,7 @@
  *
  * np.minimum.at runs ~1e7 scatter-min/s (ufunc.at dispatch per element);
  * this loop is memory-bound (~1e9/s) — the difference between ~100 s and
- * ~1 s for a 16.7M-body 1080p frame (BASELINE.md render table).
+ * ~1 s for a 16.7M-body 1080p frame on the host.
  */
 #define PY_SSIZE_T_CLEAN
 #include <Python.h>

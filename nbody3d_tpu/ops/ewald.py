@@ -145,9 +145,9 @@ def ewald_potential_energy(
     kvec = (2.0 * jnp.pi / L) * modes
     k2 = jnp.sum(kvec * kvec, axis=1)
     damp = jnp.exp(-0.5 * k2 * sigma * sigma) / k2
-    phase = x @ kvec.T
-    Sc = m @ jnp.cos(phase)
-    Ss = m @ jnp.sin(phase)
+    phase = jnp.matmul(x, kvec.T, precision=lax.Precision.HIGHEST)
+    Sc = jnp.matmul(m, jnp.cos(phase), precision=lax.Precision.HIGHEST)
+    Ss = jnp.matmul(m, jnp.sin(phase), precision=lax.Precision.HIGHEST)
     u_k = -(4.0 * jnp.pi / (L * L * L)) * jnp.sum(damp * (Sc * Sc + Ss * Ss))
 
     # Gaussian self-energy removal + neutralizing background
@@ -245,7 +245,7 @@ def ewald_potential_energy_f64(
     the uniform-box gate preset while the physical total is O(1e2), so a
     float32 evaluation carries ~1e2 of rounding noise — measured: a 1e-5
     position jitter (true dE ~ 1e-6) moved the f32 value by 86 at N=4k,
-    and the round-3 periodic "energy drift" of 1-4 units was exactly this
+    and an early periodic "energy drift" of 1-4 units was exactly this
     noise (config-independent across sigma/interlace/nbr_k, erratic under
     dt scaling).  In f64 the same jitter moves the value by < 1e-6.
     Terms and conventions identical to the f32 form above."""
@@ -366,7 +366,10 @@ def ewald_accel_reference(
         d = d0 + s[None, None, :]
         r2 = jnp.sum(d * d, axis=-1)
         w = k_short_periodic(r2, eps2, sigma) * m[None, :]
-        return acc + jnp.einsum("ij,ijc->ic", w, d), None
+        acc = acc + jnp.einsum(
+            "ij,ijc->ic", w, d, precision=lax.Precision.HIGHEST
+        )
+        return acc, None
 
     a_real, _ = lax.scan(one_shift, jnp.zeros((n, 3), dt), shifts)
 
@@ -376,14 +379,14 @@ def ewald_accel_reference(
     kvec = (2.0 * jnp.pi / L) * modes  # (K, 3)
     k2 = jnp.sum(kvec * kvec, axis=1)  # (K,)
     damp = jnp.exp(-0.5 * k2 * sigma * sigma) / k2  # (K,)
-    phase = x @ kvec.T  # (N, K)
+    phase = jnp.matmul(x, kvec.T, precision=lax.Precision.HIGHEST)  # (N, K)
     c = jnp.cos(phase)
     s = jnp.sin(phase)
-    Sc = m @ c  # (K,)
-    Ss = m @ s
+    Sc = jnp.matmul(m, c, precision=lax.Precision.HIGHEST)  # (K,)
+    Ss = jnp.matmul(m, s, precision=lax.Precision.HIGHEST)
     # d/dx_i of the pair sum; factor 2 restores the skipped -k half.
     coef = 2.0 * (4.0 * jnp.pi) / (L * L * L)
     proj = damp[None, :] * (c * Ss[None, :] - s * Sc[None, :])  # (N, K)
-    a_recip = coef * (proj @ kvec)
+    a_recip = coef * jnp.matmul(proj, kvec, precision=lax.Precision.HIGHEST)
 
     return a_real + a_recip

@@ -1,9 +1,9 @@
 """Comoving-coordinate integration on an expanding background (EdS/ΛCDM).
 
 The reference simulates Newtonian gravity in a static space
-(``nbody3d.js:218-294``); the periodic solvers (round 3) made
-cosmological workloads meaningful, and round 4's Zel'dovich initial
-conditions (models/cosmo.py) seeded them — but growth in the static
+(``nbody3d.js:218-294``); the periodic solvers made cosmological
+workloads meaningful, and the Zel'dovich initial conditions
+(models/cosmo.py) seed them — but growth in the static
 periodic box is the Jeans instability ``delta ~ exp(t/tau)``, not the
 power-law growth of an expanding universe.  This module adds the real
 thing: comoving coordinates on a homogeneous expanding background —
@@ -296,9 +296,7 @@ def cosmic_time_and_scale(
     raise ValueError(f"no background for cosmology={config.cosmology!r}")
 
 
-def make_cosmo_step_fn(
-    config: SimConfig, n_pad: int, n_real: int, backend: str, interpret: bool
-):
+def make_cosmo_step_fn(config: SimConfig, n_pad: int, n_real: int):
     """Build the single-chip comoving ``step(state, dt, G) -> state``.
 
     ``dt`` is COSMIC time; ``t_i`` (hence the whole expansion history)
@@ -311,7 +309,7 @@ def make_cosmo_step_fn(
     from nbody3d_tpu.ops.integrate import _mask
     from nbody3d_tpu.ops.step import make_mesh_accel_fn
 
-    accel_fn = make_mesh_accel_fn(config, n_real, backend, interpret)
+    accel_fn = make_mesh_accel_fn(config, n_real)
     inv_vol = 1.0 / float(config.box_size) ** 3
     valid = _mask(n_pad, n_real)
 

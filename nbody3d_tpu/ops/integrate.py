@@ -20,7 +20,7 @@ along untouched (``nbody3d.js:283`` updates ``bodies`` including ``.w``).
 The first step uses ``a_old = 0`` because the reference's acceleration
 buffer is created but never host-written (``nbody3d.js:195-199``).
 
-Padded targets are frozen via ``valid`` masks — the TPU equivalent of the
+Padded targets are frozen via ``valid`` masks — the equivalent of the
 ``index < nBodies`` guards (``nbody3d.js:257,265``).
 """
 

@@ -2,15 +2,12 @@
 
 The reference has no analog — its bodies stay in generation order forever
 (``nbody3d.js:177-204``) because the WGSL kernel's shared-memory tiling is
-order-insensitive.  On TPU, body order *does* matter for the ``sym``
-force mode: its MXU operands are limb-split around per-block centroids,
-and the f32 accumulation error of the limb columns scales with the block
-radius (docs/DESIGN.md, "block-centered limbs").  Z-ordering makes kernel
-blocks spatially compact, shrinking those radii by ~the block count's
-cube root and with them the fast-path momentum error.
+order-insensitive.  Here body order matters for the P3M solver: its
+short-range pass works on fixed-size tiles of consecutive bodies, and
+Z-ordering makes those tiles spatially compact.
 
-Physics is permutation-invariant (all-pairs force), so reordering between
-scan chunks changes nothing observable except float reduction order.
+Physics is permutation-invariant (all-pairs force), so reordering changes
+nothing observable except float reduction order.
 Padding rows (mass 0 at the array tail) keep the maximum key so they stay
 at the tail through the sort.
 """
@@ -22,7 +19,7 @@ import functools
 import jax
 import jax.numpy as jnp
 
-# 10 bits per dimension -> 30-bit keys in int32 (TPU-friendly; no x64).
+# 10 bits per dimension -> 30-bit keys in int32 (no x64 needed).
 # 1024^3 cells is far finer than any useful block partition; key ties
 # fall back to current order (stable argsort).
 _BITS = 10

@@ -23,7 +23,7 @@ Plummer-softened pair interaction (``nbody3d.js:232-237``) into
   so within the cutoff every pair feels the reference's exact softened
   force, with only the smooth part left to the grid.
 
-The short-range sum is TPU-first **block-sparse direct**: bodies are
+The short-range sum is **block-sparse direct**: bodies are
 Morton-sorted (``ops/morton.py``) so fixed ``block``-row tiles are
 spatially compact; per target tile the ``nbr_k`` nearest source tiles (by
 axis-aligned-bounding-box distance — an upper-bound-free lower bound on
@@ -47,8 +47,6 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 from jax.scipy.special import erf, erfc
 
 from nbody3d_tpu.ops.morton import morton_keys
@@ -99,8 +97,13 @@ def heavy_direct(pos_mass: jax.Array, hidx: jax.Array, eps2: float):
     r2 = jnp.sum(d * d, axis=-1)
     inv_s = lax.rsqrt(r2 + jnp.float32(eps2))
     w = inv_s * inv_s * inv_s * (r2 > 0)
-    a_from_heavy = jnp.einsum("nk,nkc->nc", w * hp[None, :, 3], d)
-    a_on_heavy = -jnp.einsum("nk,nkc->kc", w * pos_mass[:, 3][:, None], d)
+    a_from_heavy = jnp.einsum(
+        "nk,nkc->nc", w * hp[None, :, 3], d, precision=lax.Precision.HIGHEST
+    )
+    a_on_heavy = -jnp.einsum(
+        "nk,nkc->kc", w * pos_mass[:, 3][:, None], d,
+        precision=lax.Precision.HIGHEST,
+    )
     return a_from_heavy, a_on_heavy
 
 # Defaults tuned in tests/test_p3m.py: sigma = 1.5 cells keeps the
@@ -123,7 +126,7 @@ _NBR_ROW_CHUNK = 2048
 # super-tiles of _SUPER consecutive Morton tiles, nearest super-tiles
 # are selected by the same jittered-AABB + mutual-top-k rule, and the
 # fine top-k runs only over the admitted supers' tiles.  8192 tiles =
-# 2M bodies at block 256, the round-2 ceiling (VERDICT r2 #1).
+# 2M bodies at block 256.
 _FLAT_MAX_TILES = 8192
 _SUPER = 32
 DEFAULT_SUP_K = 12
@@ -134,12 +137,13 @@ def p3m_block(n: int, block: int = 0) -> int:
     is still shrunk to a divisor), else ``DEFAULT_BLOCK``.  Always returns
     a divisor of ``n`` (halving, then a final gcd-style fallback), so any
     padded N the engine produces — including the jnp backend's granule of
-    8 — works without a special pad (ADVICE r2: ``--method p3m --n 1000``
-    on CPU must run, not raise)."""
-    from nbody3d_tpu.ops.blocks import divisor_block
-
-    want = min(block, n) if block else min(DEFAULT_BLOCK, n)
-    return divisor_block(n, want, floor=1)
+    8 — works without a special pad."""
+    if n <= 0:
+        raise ValueError(f"cannot fit a block into n={n}")
+    b = max(1, min(block, n) if block else min(DEFAULT_BLOCK, n))
+    while b > 1 and n % b != 0:
+        b //= 2
+    return b
 
 
 def _select_neighbors(
@@ -162,7 +166,7 @@ def _select_neighbors(
     materialized); past ``_FLAT_MAX_TILES`` the two-level hierarchy
     (:func:`_select_neighbors_hier`) bounds per-row candidates to the
     admitted super-tiles' members, making 16M-body selection O(nb·K)
-    instead of O(nb²) (VERDICT r2 #1)."""
+    instead of O(nb²)."""
     nb = lo_b.shape[0]
     if nb > _FLAT_MAX_TILES:
         return _select_neighbors_hier(
@@ -311,11 +315,7 @@ def _tsc_cells(
     weights ``{0.5(0.5-f)², 0.75-f², 0.5(0.5+f)²}`` on cells c-1, c, c+1.
     Cell centers at ``lo + (i + 0.5) h`` as in :func:`pm._cic_cells`.
 
-    Returns ``(c, w, f)``.  ``f`` is the single source of truth for the
-    tile kernels' one-hot weights (``ops/mesh_pallas.py``): the kernel
-    weights (built from ``f``) and the repair pass's weights (``w``) must
-    stay bit-identical for the valid/invalid particle partition to be
-    exact, so callers must never re-derive ``f`` by hand.
+    Returns ``(c, w, f)``.
 
     ``periodic``: the nearest cell wraps mod ``grid`` (its +/-1 stencil
     neighbors wrap through the roll-based deposit/gather tables) and
@@ -680,562 +680,6 @@ def _short_range_tiles(
     )
 
 
-# ------------------------------------------------ Pallas short-range kernel
-#
-# The short-range pass is the P3M step's VPU budget (~0.57 s of the 1.17 s
-# step at N=2M, ~30 G-pair/s through XLA): ~40 elementwise ops per pair,
-# dominated by the erfc/exp split kernel.  The Pallas version is the
-# block-sparse analog of the direct solver's tiling: grid (target tile,
-# neighbor slot), with the SOURCE tile id scalar-prefetched from
-# ``nbr_idx`` (pltpu.PrefetchScalarGridSpec) so Mosaic pipelines the
-# gathered tile fetches — the TPU-native form of the reference kernel's
-# shared-memory tile loop (nbody3d.js:244-262) over an irregular tile set.
-#
-# erfc inside the kernel uses the Abramowitz-Stegun 7.1.26 rational form
-# erfc(u) = t(a1 + t(a2 + t(a3 + t(a4 + t a5)))) e^{-u^2}, t = 1/(1+pu)
-# (|abs err| <= 1.5e-7), which REUSES the e^{-u^2} the gaussian term
-# already needs — one exp, no erf lowering, error far below the solver's
-# ~1e-3 contract (and below the f32 FFT noise floor of the mesh side).
-
-_AS_P = 0.3275911
-_AS_A = (0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429)
-
-# Per-call budget for the kernel's flat SMEM metadata (ids + mask); the
-# call chunks over tile ranges beyond it (~1 MB SMEM per core).  Module
-# constant so tests can force the multi-chunk path at small N.
-_SR_SMEM_BUDGET = 768 << 10
-
-
-def _short_range_kernel(
-    tgt_rows_ref, nbr_ref, scal_ref, mask_ref, tgt_ref, srcT_ref,
-    out_ref, acc_ref, *, b, eps2, knbr, periodic=False,
-):
-    """One (target tile i, neighbor slot k) block: dense (B, B) pair
-    correction vs source tile ``nbr_idx[i, k]``, accumulated over k.
-    ``scal`` (SMEM f32[4]): [rcut^2, 1/(sqrt2 sigma), (2/sqrt(pi))/(sqrt2
-    sigma), box L (periodic only)]; ``mask`` is the FLAT (chunk*knbr,)
-    mutual mask in SMEM (dynamic element reads need scalar memory — a
-    VMEM lane index must be statically 128-aligned).  Pair math mirrors
-    :func:`k_short` (isolated) / :func:`ewald.k_short_periodic` (periodic:
-    minimum-image separations, ``inv_s^3 - inv_r^3 + erfc(u) inv_r^3 +
-    gauss inv_r^2`` — same one exp feeding the A-S erfc)."""
-    i = pl.program_id(0)
-    k = pl.program_id(1)
-    nk = pl.num_programs(1)
-
-    tgt = tgt_ref[...]
-    dx = srcT_ref[0:1, :] - tgt[:, 0:1]
-    dy = srcT_ref[1:2, :] - tgt[:, 1:2]
-    dz = srcT_ref[2:3, :] - tgt[:, 2:3]
-    if periodic:
-        box = scal_ref[3]
-        half = 0.5 * box
-        dx = dx - jnp.where(dx > half, box, 0.0) + jnp.where(dx < -half, box, 0.0)
-        dy = dy - jnp.where(dy > half, box, 0.0) + jnp.where(dy < -half, box, 0.0)
-        dz = dz - jnp.where(dz > half, box, 0.0) + jnp.where(dz < -half, box, 0.0)
-    r2 = dx * dx + (dy * dy + dz * dz)
-
-    pos = r2 > 0.0
-    r2s = jnp.where(pos, r2, 1.0)
-    inv_r = lax.rsqrt(r2s)
-    r = r2s * inv_r
-    inv_s = lax.rsqrt(r2s + jnp.float32(eps2))
-    u = r * scal_ref[1]
-    e = jnp.exp(-(u * u))
-    t = 1.0 / (1.0 + _AS_P * u)
-    a1, a2, a3, a4, a5 = _AS_A
-    erfc_u = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5)))) * e
-    if periodic:
-        inv_r3 = inv_r * inv_r * inv_r
-        inv_s3 = inv_s * inv_s * inv_s
-        kshort = (
-            (inv_s3 - inv_r3)
-            + erfc_u * inv_r3
-            + (scal_ref[2] * e) * (inv_r * inv_r)
-        )
-    else:
-        kshort = erfc_u * (inv_s * inv_s * inv_s) + (scal_ref[2] * e) * (
-            inv_s * inv_r
-        )
-    w = jnp.where(pos & (r2 < scal_ref[0]), kshort, 0.0)
-    w = w * srcT_ref[3:4, :]
-
-    # The mutual-neighbor mask scales this block's w linearly, so it can
-    # multiply the REDUCED partial instead of the (B, B) matrix — one
-    # scalar SMEM read per grid step.
-    mask_ik = mask_ref[i * knbr + k]
-    part = mask_ik * jnp.concatenate(
-        [
-            jnp.sum(w * dx, axis=1, keepdims=True),
-            jnp.sum(w * dy, axis=1, keepdims=True),
-            jnp.sum(w * dz, axis=1, keepdims=True),
-            jnp.zeros((b, 1), jnp.float32),
-        ],
-        axis=1,
-    )
-
-    @pl.when(k == 0)
-    def _():
-        acc_ref[...] = part
-
-    @pl.when(k > 0)
-    def _():
-        acc_ref[...] += part
-
-    @pl.when(k == nk - 1)
-    def _():
-        out_ref[...] = acc_ref[...]
-
-
-def _short_range_tiles_pallas(
-    ps: jax.Array,
-    nbr_idx: jax.Array,
-    tile0: jax.Array | int,
-    ntiles: int,
-    eps2: float,
-    sigma: jax.Array,
-    rcut: jax.Array,
-    block: int,
-    nbr_mask: jax.Array | None = None,
-    interpret: bool = False,
-    box: jax.Array | None = None,
-) -> jax.Array:
-    """Same contract as :func:`_short_range_tiles` (the jnp oracle — the
-    parity test is ``tests/test_p3m.py::test_short_range_pallas``), as a
-    block-sparse Pallas kernel.  ~3x the XLA form at N=2M (BASELINE.md).
-    ``box``: periodic box size (minimum-image pair math in-kernel).
-
-    The call is chunked over tile ranges so the scalar-prefetched flat
-    neighbor ids stay under the ~1 MB SMEM budget at any N (a 16M-body
-    run has 65,536 tiles x k ids = 4 MB — four calls of 16k tiles
-    instead; one compile, shapes identical)."""
-    k = nbr_idx.shape[1]
-    psT = ps.T  # (4, N) rows [x, y, z, m]
-    scal = jnp.stack(
-        [
-            rcut * rcut,
-            1.0 / (_SQRT2 * sigma),
-            _TWO_OVER_SQRT_PI / (_SQRT2 * sigma),
-            jnp.float32(0.0) + (box if box is not None else 0.0),
-        ]
-    ).astype(jnp.float32)
-    if nbr_mask is None:
-        nbr_mask = jnp.ones((ntiles, k), jnp.float32)
-
-    # Largest divisor of ntiles keeping the two flat per-(tile, slot)
-    # arrays (i32 ids + f32 mask) within ~768 KB of the ~1 MB SMEM.
-    chunk = ntiles
-    while chunk * k * 8 > _SR_SMEM_BUDGET or ntiles % chunk != 0:
-        chunk -= 1
-
-    kernel = functools.partial(
-        _short_range_kernel, b=block, eps2=float(eps2), knbr=k,
-        periodic=box is not None,
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,  # tgt_rows (chunk,), flat nbr ids (chunk*k,)
-        grid=(chunk, k),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # scal
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # flat mutual mask
-            pl.BlockSpec(
-                (block, 4),
-                lambda i, j, rows, nbr: (rows[i], 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (4, block),
-                lambda i, j, rows, nbr: (0, nbr[i * k + j]),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (block, 4), lambda i, j, rows, nbr: (i, 0), memory_space=pltpu.VMEM
-        ),
-        scratch_shapes=[pltpu.VMEM((block, 4), jnp.float32)],
-    )
-    call = functools.partial(
-        pl.pallas_call,
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((chunk * block, 4), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary"),
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=40 * chunk * block * k * block,
-            bytes_accessed=chunk * k * block * 32,
-            transcendentals=2 * chunk * block * k * block,
-        ),
-        interpret=interpret,
-    )()
-    outs = []
-    for c in range(ntiles // chunk):
-        rows = tile0 + jnp.arange(c * chunk, (c + 1) * chunk, dtype=jnp.int32)
-        flat = lax.dynamic_slice_in_dim(
-            nbr_idx, c * chunk, chunk
-        ).reshape(-1)
-        msk = lax.dynamic_slice_in_dim(nbr_mask, c * chunk, chunk).reshape(-1)
-        outs.append(call(rows, flat, scal, msk, ps, psT))
-    out = outs[0] if len(outs) == 1 else jnp.concatenate(outs, axis=0)
-    return out[:, :3]
-
-
-def _short_range_bwd_kernel(
-    tgt_rows_ref, nbr_ref, scal_ref, mask_ref,
-    tgt_ref, gtgt_ref, srcT_ref, gsrcT_ref,
-    dout_ref, dsig_ref, acc_ref, sacc_ref, *, b, eps2, knbr, periodic=False,
-):
-    """Backward of :func:`_short_range_kernel` as the SAME block-sparse
-    pass: because the neighbor relation is mutual (``mutual_neighbor_mask``
-    zeroes one-sided pairs on BOTH sides), every pair that contributes to
-    a row's cotangent — whether the row acted as target or as source —
-    appears on that row's OWN neighbor list, so the backward gathers the
-    neighbor tiles' cotangents exactly like the primal gathers positions
-    and never scatters.  Per pair (i target row, j source row, d = x_j −
-    x_i, k = pair scalar, k' = dk/dr², w_t = k·m_j, w_s = k·m_i):
-
-      dx_i = Σ_j [ 2k'(m_i (d·g_j) − m_j (d·g_i)) d + k (m_i g_j − m_j g_i) ]
-      dm_i = −Σ_j k (d·g_j)
-      dσ   = Σ_ij m_j (d·g_i) ∂k/∂σ   (emitted per target row, summed in XLA)
-
-    ``scal`` (SMEM f32[5]): [rcut², 1/(√2σ), (2/√π)/(√2σ), box L, 1/σ]."""
-    i = pl.program_id(0)
-    k = pl.program_id(1)
-    nk = pl.num_programs(1)
-
-    tgt = tgt_ref[...]
-    gtgt = gtgt_ref[...]
-    dx = srcT_ref[0:1, :] - tgt[:, 0:1]
-    dy = srcT_ref[1:2, :] - tgt[:, 1:2]
-    dz = srcT_ref[2:3, :] - tgt[:, 2:3]
-    if periodic:
-        box = scal_ref[3]
-        half = 0.5 * box
-        dx = dx - jnp.where(dx > half, box, 0.0) + jnp.where(dx < -half, box, 0.0)
-        dy = dy - jnp.where(dy > half, box, 0.0) + jnp.where(dy < -half, box, 0.0)
-        dz = dz - jnp.where(dz > half, box, 0.0) + jnp.where(dz < -half, box, 0.0)
-    r2 = dx * dx + (dy * dy + dz * dz)
-
-    pos = r2 > 0.0
-    r2s = jnp.where(pos, r2, 1.0)
-    inv_r = lax.rsqrt(r2s)
-    r = r2s * inv_r
-    inv_s = lax.rsqrt(r2s + jnp.float32(eps2))
-    a1c = scal_ref[1]  # 1/(sqrt2 sigma)
-    c2 = scal_ref[2]   # (2/sqrt(pi))/(sqrt2 sigma)
-    u = r * a1c
-    e = jnp.exp(-(u * u))
-    t = 1.0 / (1.0 + _AS_P * u)
-    a1, a2, a3, a4, a5 = _AS_A
-    erfc_u = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5)))) * e
-    a_sq = a1c * a1c  # 1/(2 sigma^2)
-    inv_sigma = scal_ref[4]
-    inv_s2 = inv_s * inv_s
-    inv_s3 = inv_s2 * inv_s
-    inv_s5 = inv_s3 * inv_s2
-    if periodic:
-        inv_r2 = inv_r * inv_r
-        inv_r3 = inv_r2 * inv_r
-        inv_r4 = inv_r2 * inv_r2
-        inv_r5 = inv_r3 * inv_r2
-        kshort = (inv_s3 - inv_r3) + erfc_u * inv_r3 + (c2 * e) * inv_r2
-        kprime = (
-            -1.5 * inv_s5 + 1.5 * inv_r5
-            - 0.5 * c2 * e * inv_r4
-            - 1.5 * erfc_u * inv_r5
-            + c2 * e * (-a_sq * inv_r2 - inv_r4)
-        )
-        ksig = (
-            _SQRT2 * c2 * u * e * inv_r3
-            + c2 * inv_sigma * (2.0 * u * u - 1.0) * e * inv_r2
-        )
-    else:
-        inv_r3 = inv_r * inv_r * inv_r
-        kshort = erfc_u * inv_s3 + (c2 * e) * (inv_s * inv_r)
-        kprime = (
-            -0.5 * c2 * e * inv_r * inv_s3
-            - 1.5 * erfc_u * inv_s5
-            + c2 * e * (
-                -a_sq * inv_s * inv_r
-                - 0.5 * inv_s3 * inv_r
-                - 0.5 * inv_s * inv_r3
-            )
-        )
-        ksig = (
-            _SQRT2 * c2 * u * e * inv_s3
-            + c2 * inv_sigma * (2.0 * u * u - 1.0) * e * (inv_s * inv_r)
-        )
-
-    gate = pos & (r2 < scal_ref[0])
-    ks_g = jnp.where(gate, kshort, 0.0)
-    kp_g = jnp.where(gate, kprime, 0.0)
-    ksig_g = jnp.where(gate, ksig, 0.0)
-
-    m_j = srcT_ref[3:4, :]
-    m_i = tgt[:, 3:4]
-    gx_i, gy_i, gz_i = gtgt[:, 0:1], gtgt[:, 1:2], gtgt[:, 2:3]
-    gx_j = gsrcT_ref[0:1, :]
-    gy_j = gsrcT_ref[1:2, :]
-    gz_j = gsrcT_ref[2:3, :]
-    dgi = dx * gx_i + dy * gy_i + dz * gz_i
-    dgj = dx * gx_j + dy * gy_j + dz * gz_j
-
-    coef = 2.0 * kp_g * (m_i * dgj - m_j * dgi)
-    mask_ik = mask_ref[i * knbr + k]
-    part = mask_ik * jnp.concatenate(
-        [
-            jnp.sum(coef * dx + ks_g * (m_i * gx_j - m_j * gx_i),
-                    axis=1, keepdims=True),
-            jnp.sum(coef * dy + ks_g * (m_i * gy_j - m_j * gy_i),
-                    axis=1, keepdims=True),
-            jnp.sum(coef * dz + ks_g * (m_i * gz_j - m_j * gz_i),
-                    axis=1, keepdims=True),
-            jnp.sum(-ks_g * dgj, axis=1, keepdims=True),
-        ],
-        axis=1,
-    )
-    spart = mask_ik * jnp.concatenate(
-        [
-            jnp.sum(m_j * dgi * ksig_g, axis=1, keepdims=True),
-            jnp.zeros((b, 3), jnp.float32),
-        ],
-        axis=1,
-    )
-
-    @pl.when(k == 0)
-    def _():
-        acc_ref[...] = part
-        sacc_ref[...] = spart
-
-    @pl.when(k > 0)
-    def _():
-        acc_ref[...] += part
-        sacc_ref[...] += spart
-
-    @pl.when(k == nk - 1)
-    def _():
-        dout_ref[...] = acc_ref[...]
-        dsig_ref[...] = sacc_ref[...]
-
-
-def _short_range_tiles_bwd_pallas(
-    ps: jax.Array,
-    g: jax.Array,
-    nbr_idx: jax.Array,
-    ntiles: int,
-    eps2: float,
-    sigma: jax.Array,
-    rcut: jax.Array,
-    block: int,
-    nbr_mask: jax.Array,
-    interpret: bool = False,
-    box: jax.Array | None = None,
-):
-    """FULL-RANGE backward of the Pallas short-range pass (every tile is a
-    target, which with the mutual mask makes the cotangent a pure gather —
-    see :func:`_short_range_bwd_kernel`).  Returns ``(dps (N,4), dsig)``;
-    the rcut cotangent is identically zero (rcut only gates a ``where``).
-    Same SMEM chunking discipline as the primal wrapper."""
-    k = nbr_idx.shape[1]
-    psT = ps.T
-    g4 = jnp.concatenate([g, jnp.zeros((g.shape[0], 1), jnp.float32)], axis=1)
-    g4T = g4.T
-    scal = jnp.stack(
-        [
-            rcut * rcut,
-            1.0 / (_SQRT2 * sigma),
-            _TWO_OVER_SQRT_PI / (_SQRT2 * sigma),
-            jnp.float32(0.0) + (box if box is not None else 0.0),
-            1.0 / sigma,
-        ]
-    ).astype(jnp.float32)
-
-    chunk = ntiles
-    while chunk * k * 8 > _SR_SMEM_BUDGET or ntiles % chunk != 0:
-        chunk -= 1
-
-    kernel = functools.partial(
-        _short_range_bwd_kernel, b=block, eps2=float(eps2), knbr=k,
-        periodic=box is not None,
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(chunk, k),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # scal
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # flat mutual mask
-            pl.BlockSpec(
-                (block, 4),
-                lambda i, j, rows, nbr: (rows[i], 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (block, 4),
-                lambda i, j, rows, nbr: (rows[i], 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (4, block),
-                lambda i, j, rows, nbr: (0, nbr[i * k + j]),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (4, block),
-                lambda i, j, rows, nbr: (0, nbr[i * k + j]),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=[
-            pl.BlockSpec(
-                (block, 4), lambda i, j, rows, nbr: (i, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (block, 4), lambda i, j, rows, nbr: (i, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((block, 4), jnp.float32),
-            pltpu.VMEM((block, 4), jnp.float32),
-        ],
-    )
-    call = functools.partial(
-        pl.pallas_call,
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((chunk * block, 4), jnp.float32),
-            jax.ShapeDtypeStruct((chunk * block, 4), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary"),
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=80 * chunk * block * k * block,
-            bytes_accessed=chunk * k * block * 64,
-            transcendentals=2 * chunk * block * k * block,
-        ),
-        interpret=interpret,
-    )()
-    douts, dsig = [], jnp.float32(0.0)
-    for c in range(ntiles // chunk):
-        rows = jnp.arange(c * chunk, (c + 1) * chunk, dtype=jnp.int32)
-        flat = lax.dynamic_slice_in_dim(
-            nbr_idx, c * chunk, chunk
-        ).reshape(-1)
-        msk = lax.dynamic_slice_in_dim(nbr_mask, c * chunk, chunk).reshape(-1)
-        dout_c, dsig_c = call(rows, flat, scal, msk, ps, g4, psT, g4T)
-        douts.append(dout_c)
-        dsig = dsig + jnp.sum(dsig_c[:, 0])
-    dps = douts[0] if len(douts) == 1 else jnp.concatenate(douts, axis=0)
-    return dps, dsig
-
-
-@functools.lru_cache(maxsize=None)
-def _make_sr_pallas_diff(
-    ntiles: int, eps2: float, block: int, interpret: bool,
-    periodic: bool = False, full_range: bool = False,
-):
-    """Differentiable pairing for the short-range kernel.  Primal: the
-    block-sparse Pallas pass.  Backward: with ``full_range=True`` (every
-    tile a target — the single-chip calls), the hand-written Pallas
-    backward kernel (:func:`_short_range_tiles_bwd_pallas`, same
-    block-sparse schedule, gathers cotangents via the mutual-neighbor
-    symmetry); otherwise the jnp-oracle vjp CHUNKED over tile ranges (a
-    whole-range vjp stacks the (B, K·B) pair temporaries across every
-    ``lax.map`` step as scan residuals — ~68 GB at N=2M, measured OOM).
-    The two forms compute the same pair sum to ~1e-6, so the pairing
-    error is the same class as the forward bf16-vs-ideal trade in
-    :func:`force_vjp.make_diff_accel`.  The mask cotangent is zero: the
-    mask is a piecewise-constant gate of the (non-differentiable) top-k
-    selection, constant almost everywhere in positions.  The rcut
-    cotangent is zero on both paths (rcut only gates a ``where``)."""
-
-    @jax.custom_vjp
-    def f(ps, nbr_idx, tile0, sigma, rcut, nbr_mask, box):
-        return _short_range_tiles_pallas(
-            ps, nbr_idx, tile0, ntiles, eps2, sigma, rcut, block,
-            nbr_mask=nbr_mask, interpret=interpret,
-            box=box if periodic else None,
-        )
-
-    def fwd(ps, nbr_idx, tile0, sigma, rcut, nbr_mask, box):
-        return f(ps, nbr_idx, tile0, sigma, rcut, nbr_mask, box), (
-            ps, nbr_idx, tile0, sigma, rcut, nbr_mask, box,
-        )
-
-    def bwd(res, g):
-        import numpy as _np
-
-        ps, nbr_idx, tile0, sigma, rcut, nbr_mask, box = res
-        zi = lambda x: _np.zeros(_np.shape(x), dtype=jax.dtypes.float0)
-        if full_range:
-            # Every tile is a target => the cotangent is a pure gather
-            # over each tile's own neighbor list (mutual mask) — run it
-            # as the same block-sparse Pallas pass as the primal.
-            dps, dsig = _short_range_tiles_bwd_pallas(
-                ps, g, nbr_idx, ntiles, eps2, sigma, rcut, block,
-                nbr_mask=nbr_mask, interpret=interpret,
-                box=box if periodic else None,
-            )
-            return (
-                dps, zi(nbr_idx), zi(tile0), dsig, jnp.zeros_like(rcut),
-                jnp.zeros_like(nbr_mask), jnp.zeros_like(box),
-            )
-        k = nbr_idx.shape[1]
-        # One whole-range jax.vjp stacks the (B, K*B) pair temporaries
-        # across every lax.map step as scan residuals — ~68 GB at
-        # N=2M/k=32 (measured OOM).  Chunk the backward over tile
-        # ranges instead: each chunk's vjp recomputes its own pair
-        # terms (residuals ~chunk*B*K*B*4 B ≈ 256 MB) and target-tile
-        # rows only touch their own chunk, while source (neighbor)
-        # cotangents scatter into the full-size dps accumulator.
-        chunk = max(1, min(ntiles, (1 << 26) // max(block * k * block, 1)))
-        while ntiles % chunk != 0:
-            chunk -= 1
-
-        def restricted(ps_, sigma_, rcut_, t0, ni, mi):
-            return _short_range_tiles(
-                ps_, ni, tile0 + t0, chunk, eps2, sigma_, rcut_, block,
-                nbr_mask=mi, box=box if periodic else None,
-            )
-
-        def body(c, acc):
-            dps_a, dsig_a, drc_a = acc
-            t0 = c * chunk
-            gi = lax.dynamic_slice_in_dim(g, t0 * block, chunk * block)
-            ni = lax.dynamic_slice_in_dim(nbr_idx, t0, chunk)
-            mi = lax.dynamic_slice_in_dim(nbr_mask, t0, chunk)
-            _, vjp = jax.vjp(
-                lambda ps_, s_, r_: restricted(ps_, s_, r_, t0, ni, mi),
-                ps, sigma, rcut,
-            )
-            dps_c, dsig_c, drc_c = vjp(gi)
-            return dps_a + dps_c, dsig_a + dsig_c, drc_a + drc_c
-
-        init = (
-            jnp.zeros_like(ps),
-            jnp.zeros_like(sigma),
-            jnp.zeros_like(rcut),
-        )
-        if ntiles // chunk == 1:
-            dps, dsig, drc = body(0, init)
-        else:
-            dps, dsig, drc = lax.fori_loop(0, ntiles // chunk, body, init)
-        zi = lambda x: _np.zeros(_np.shape(x), dtype=jax.dtypes.float0)
-        return (
-            dps, zi(nbr_idx), zi(tile0), dsig, drc,
-            jnp.zeros_like(nbr_mask), jnp.zeros_like(box),
-        )
-
-    f.defvjp(fwd, bwd)
-    return f
-
-
 def short_range_tiles(
     ps: jax.Array,
     nbr_idx: jax.Array,
@@ -1246,39 +690,70 @@ def short_range_tiles(
     rcut: jax.Array,
     block: int,
     nbr_mask: jax.Array | None = None,
-    backend: str = "auto",
-    interpret: bool = False,
     box: jax.Array | None = None,
 ) -> jax.Array:
-    """Short-range correction dispatch: ``backend="auto"`` runs the Pallas
-    kernel on TPU and the jnp form elsewhere.  The Pallas path carries a
-    custom VJP (:func:`_make_sr_pallas_diff`: Pallas backward kernel for
-    full-range calls, chunked jnp-oracle vjp for tile-range slices) so
-    P3M stays differentiable on every backend.  ``box``: periodic box
-    size — minimum-image pair math with the periodic split scalar."""
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "jnp"
-    if backend == "pallas":
-        if nbr_mask is None:
-            nbr_mask = jnp.ones(nbr_idx.shape, jnp.float32)
-        full_range = (
-            isinstance(tile0, int)
-            and tile0 == 0
-            and ntiles == ps.shape[0] // block
-        )
-        f = _make_sr_pallas_diff(
-            ntiles, float(eps2), block, interpret, periodic=box is not None,
-            full_range=full_range,
-        )
-        return f(
-            ps, nbr_idx, jnp.asarray(tile0, jnp.int32), sigma, rcut,
-            nbr_mask,
-            box if box is not None else jnp.float32(0.0),
-        )
+    """Masked block-sparse short-range accelerations (per unit G); see
+    :func:`_short_range_tiles`.  Plain XLA, differentiable."""
     return _short_range_tiles(
         ps, nbr_idx, tile0, ntiles, eps2, sigma, rcut, block,
         nbr_mask=nbr_mask, box=box,
     )
+
+
+def mesh_accel(
+    ps: jax.Array,
+    lo: jax.Array,
+    h: jax.Array,
+    sigma: jax.Array,
+    *,
+    grid: int,
+    eps2: float,
+    order: int = 3,
+) -> jax.Array:
+    """Long-range mesh leg of the isolated solver, per unit G: TSC
+    (``order=3``) or CIC deposit, erf-smoothed FFT solve
+    (:func:`solve_accel_long`), matching gather."""
+    from nbody3d_tpu.ops import pm as pm_mod
+
+    pos, mass = ps[:, :3], ps[:, 3]
+    if order == 3:
+        rho = tsc_deposit(pos, mass, lo, h, grid)
+        grids = solve_accel_long(rho, h, float(eps2), sigma, order=3)
+        c, w, _ = _tsc_cells(pos, lo, h, grid)
+        return tsc_gather(grids, c, w, grid)
+    rho = pm_mod.cic_deposit(pos, mass, lo, h, grid)
+    grids = solve_accel_long(rho, h, float(eps2), sigma, order=2)
+    i0, fr = pm_mod._cic_cells(pos, lo, h, grid)
+    return pm_mod.cic_gather(grids, i0, fr, grid)
+
+
+def mesh_accel_periodic(
+    ps: jax.Array,
+    L: jax.Array,
+    sigma: jax.Array,
+    *,
+    grid: int,
+    order: int = 3,
+) -> jax.Array:
+    """Periodic mesh leg, per unit G: wrapped TSC (or CIC) deposit on the
+    torus, spectral Ewald reciprocal solve
+    (:func:`ewald.spectral_accel_grids`), matching wrapped gather.
+    ``ps`` positions must already be wrapped to ``[0, L)``."""
+    from nbody3d_tpu.ops import pm as pm_mod
+    from nbody3d_tpu.ops.ewald import spectral_accel_grids
+
+    h = L / grid
+    lo = jnp.zeros((3,), jnp.float32)
+    pos, mass = ps[:, :3], ps[:, 3]
+    if order == 3:
+        rho = tsc_deposit(pos, mass, lo, h, grid, periodic=True)
+        grids = spectral_accel_grids(rho, L, sigma, order=3)
+        c, w, _ = _tsc_cells(pos, lo, h, grid, periodic=True)
+        return tsc_gather(grids, c, w, grid)
+    rho = pm_mod.cic_deposit(pos, mass, lo, h, grid, periodic=True)
+    grids = spectral_accel_grids(rho, L, sigma, order=2)
+    i0, fr = pm_mod._cic_cells(pos, lo, h, grid, periodic=True)
+    return pm_mod.cic_gather(grids, i0, fr, grid)
 
 
 def _accel_p3m_periodic(
@@ -1293,8 +768,6 @@ def _accel_p3m_periodic(
     block: int,
     nbr_k: int,
     order: int,
-    short_backend: str,
-    mesh_backend: str,
     box_size: float,
     interlace: bool = False,
 ) -> jax.Array:
@@ -1303,13 +776,9 @@ def _accel_p3m_periodic(
     (:func:`ewald.spectral_accel_grids`, Gaussian split width
     ``sigma = sigma_cells·L/grid``) + minimum-image short-range pairs of
     :func:`ewald.k_short_periodic` over the same Morton-sorted
-    block-sparse tile machinery as the isolated solver.  The mesh leg
-    dispatches through :func:`mesh_pallas.mesh_accel_periodic`: the
-    wrap-aware MXU tile kernels on TPU at order 3 (round 4 — the leg
-    previously always paid the XLA deposit/gather bottleneck), the XLA
-    forms elsewhere."""
+    block-sparse tile machinery as the isolated solver; the mesh leg is
+    :func:`mesh_accel_periodic`."""
     from nbody3d_tpu.ops.ewald import wrap_box
-    from nbody3d_tpu.ops.mesh_pallas import mesh_accel_periodic
 
     if box_size <= 0:
         raise ValueError("boundary='periodic' requires box_size > 0")
@@ -1346,15 +815,9 @@ def _accel_p3m_periodic(
     # WORSE at grid >= 64 — it breaks the deposit<->gather alias
     # cancellation of the matched assignment pair; see ewald.py.)
     def mesh_leg(shift):
-        # The interlaced leg's half-cell shift moves each tile's cell
-        # box by at most one cell, so the Morton tiling stays local and
-        # the same tile machinery serves both legs.
         posw = wrap_box(ps[:, :3] + shift, L)
         psw = jnp.concatenate([posw, ps[:, 3:4]], axis=1)
-        return mesh_accel_periodic(
-            psw, L, sigma, grid=grid, block=block, order=order,
-            backend=mesh_backend,
-        )
+        return mesh_accel_periodic(psw, L, sigma, grid=grid, order=order)
 
     acc = mesh_leg(jnp.float32(0.0))
     if interlace:
@@ -1372,7 +835,7 @@ def _accel_p3m_periodic(
     nbr_mask = mutual_neighbor_mask(neg, nbr_idx, kth)
     acc_s = short_range_tiles(
         ps, nbr_idx, 0, nb, float(eps2), sigma, rcut, block,
-        nbr_mask=nbr_mask, backend=short_backend, box=L,
+        nbr_mask=nbr_mask, box=L,
     )
     acc = (acc + acc_s)[inv] * jnp.float32(G)
     return jnp.concatenate([acc, jnp.zeros((n, 1), jnp.float32)], axis=1)
@@ -1382,8 +845,7 @@ def _accel_p3m_periodic(
     jax.jit,
     static_argnames=(
         "grid", "eps2", "n_real", "sigma_cells", "rcut_sigmas", "block",
-        "nbr_k", "order", "heavy_k", "short_backend", "mesh_backend",
-        "boundary", "box_size", "interlace",
+        "nbr_k", "order", "heavy_k", "boundary", "box_size", "interlace",
     ),
 )
 def accel_p3m(
@@ -1399,8 +861,6 @@ def accel_p3m(
     nbr_k: int = DEFAULT_NBR_K,
     order: int = 3,
     heavy_k: int = DEFAULT_HEAVY_K,
-    short_backend: str = "auto",
-    mesh_backend: str = "auto",
     boundary: str = "isolated",
     box_size: float = 0.0,
     interlace: bool = False,
@@ -1410,10 +870,8 @@ def accel_p3m(
     massive bodies (:func:`heavy_split`), matching the direct solver to
     ~1e-3 everywhere including clustered cores (contract in
     ``tests/test_p3m.py``).  ``block=0`` auto-sizes the short-range
-    tiles (:func:`p3m_block`).  ``short_backend`` dispatches the
-    short-range pass (:func:`short_range_tiles`) and ``mesh_backend``
-    the deposit/gather (:func:`mesh_pallas.mesh_accel`); every form is
-    differentiable (the Pallas paths pair jnp-oracle backwards).
+    tiles (:func:`p3m_block`).  Plain XLA throughout, so every part is
+    differentiable.
 
     ``boundary="periodic"`` (requires ``box_size > 0``) computes the
     EXACT periodized Plummer interaction on the torus ``[0, box_size)³``
@@ -1425,11 +883,7 @@ def accel_p3m(
     kernel, no per-step box fit), the mass-hierarchy split is off
     (``heavy_k`` ignored: exact heavy pairs have no periodic form without
     their own Ewald sum, and periodic volumes are mass-uniform use
-    cases); the mesh leg runs the wrap-aware MXU tile kernels on TPU
-    (:func:`mesh_pallas.mesh_accel_periodic`) and the roll-based XLA
-    deposit/gather elsewhere."""
-    from nbody3d_tpu.ops.mesh_pallas import mesh_accel
-
+    cases)."""
     n = pos_mass.shape[0]
     if n_real is None:
         n_real = n
@@ -1441,8 +895,7 @@ def accel_p3m(
         return _accel_p3m_periodic(
             pos_mass, G, grid=grid, eps2=eps2, n_real=n_real,
             sigma_cells=sigma_cells, rcut_sigmas=rcut_sigmas, block=block,
-            nbr_k=nbr_k, order=order, short_backend=short_backend,
-            mesh_backend=mesh_backend, box_size=box_size,
+            nbr_k=nbr_k, order=order, box_size=box_size,
             interlace=interlace,
         )
     if boundary != "isolated":
@@ -1458,22 +911,17 @@ def accel_p3m(
     hidx, mass_mesh = heavy_split(pos_mass, heavy_k)
     pm_mesh = jnp.concatenate([pos, mass_mesh[:, None]], axis=1)
 
-    # Morton sort FIRST: the short-range tile pass and the mesh tile
-    # kernels share the sorted layout (ops/mesh_pallas.py docstring), and
-    # combining both passes in sorted order needs only one inverse-
-    # permutation gather at the end.
+    # Morton sort FIRST: the short-range tile pass needs the sorted
+    # layout, and combining both passes in sorted order needs only one
+    # inverse-permutation gather at the end.
     keys = morton_keys(pos_mass, n_real)
     perm = jnp.argsort(keys, stable=True)
     inv = jnp.argsort(perm)
     ps = pm_mesh[perm]
 
     # Long range: the PM pipeline with the erf-smoothed gradient kernels
-    # (see solve_accel_long) at the requested assignment order, on the
-    # resolved mesh backend (MXU tile kernels on TPU at order 3).
-    acc = mesh_accel(
-        ps, lo, h, sigma, grid=grid, eps2=float(eps2), block=block,
-        order=order, backend=mesh_backend,
-    )
+    # (see solve_accel_long) at the requested assignment order.
+    acc = mesh_accel(ps, lo, h, sigma, grid=grid, eps2=float(eps2), order=order)
 
     # Project out the mesh's spurious net force.  The exact light-light
     # interaction is translation-invariant (zero net force); subtracting
@@ -1489,14 +937,14 @@ def accel_p3m(
     acc = acc - jnp.sum(mass_s[:, None] * acc, axis=0)[None, :] / msum
 
     # Short range: nearest-tile selection -> masked dense correction
-    # over the same sorted tiles (gather, never scatter: TPU).
+    # over the same sorted tiles.
     lo_b, hi_b = _sorted_aabbs(ps, n_real, block)
     nb = n // block
     kth, neg, nbr_idx = _select_neighbors(lo_b, hi_b, 0, nb, h, nbr_k)
     nbr_mask = mutual_neighbor_mask(neg, nbr_idx, kth)
     acc_s = short_range_tiles(
         ps, nbr_idx, 0, nb, float(eps2), sigma, rcut, block,
-        nbr_mask=nbr_mask, backend=short_backend,
+        nbr_mask=nbr_mask,
     )
     acc = (acc + acc_s)[inv]
 

@@ -1,59 +1,35 @@
-"""Pallas TPU kernel: tiled all-pairs softened gravity (optional fused Verlet).
+"""Direct-sum force kernel for NVIDIA Hopper: Pallas on the Triton route.
 
-This is the TPU-native rebuild of the reference's WGSL compute pass
-(``nbody3d.js:218-294``), redesigned for the VPU/MXU/VMEM rather than
-translated:
+The reference's WGSL compute pass (``nbody3d.js:218-294``) gives each
+thread one body and walks the sources in workgroup-shared tiles of 256
+(``nbody3d.js:255-272``).  This kernel keeps that scheme:
 
-Reference (WebGPU)                         | This kernel (TPU)
--------------------------------------------|----------------------------------
-1 thread per body, workgroup of 256        | grid over (target blocks BT,
-  (``nbody3d.js:240-247``)                 |   source tiles BS); each grid step
-                                           |   processes BT*BS pairs
-workgroup-shared 256-body tile, barrier-   | source tiles streamed HBM->VMEM by
-  synced (``nbody3d.js:228-229,255-272``)  |   the Pallas pipeline (auto
-                                           |   double-buffered); no barriers
-per-thread scalar accumulator              | per-source-tile lane reduction
-                                           |   accumulated into the revisited
-                                           |   output block (f32)
-in-dispatch read/write race for N > 256    | pure functional: inputs immutable,
-  (SURVEY §2.3)                            |   outputs separate buffers ->
-                                           |   deterministic Jacobi at all N
-fused velocity-Verlet tail                 | available as a fused epilogue, but
-  (``nbody3d.js:274-290``)                 |   OFF by default: fusion measured
-                                           |   2x slower on TPU (config.py) —
-                                           |   integration runs as XLA
-                                           |   elementwise ops, state still
-                                           |   HBM-resident under lax.scan
+- one program per block of ``BLOCK_T`` targets, whose coordinates stay in
+  registers for the whole program;
+- an in-kernel ``lax.fori_loop`` over source tiles of ``BLOCK_S`` bodies,
+  which Triton software-pipelines over ``NUM_STAGES`` stages;
+- each tile's ``(BLOCK_T, BLOCK_S)`` pair terms accumulate element-wise
+  into register tiles that are reduced over the source axis once, after
+  the loop.
+
+Targets and sources are structure-of-arrays ``(4, N)`` rows
+``[x, y, z, G*m]``, so every load is one contiguous row segment.  When the
+target blocks alone are too few to fill the card (the 40,002-body
+reference default makes 626 of them for 132 SMs), the source loop is split
+over a second grid axis and the partial sums are added in XLA.
 
 Pair math matches ``bodyAccel`` (``nbody3d.js:232-237``): ``d2 = |r|^2 +
-eps2``, ``w = G*m_j * rsqrt(d2^3)``.  The self-pair needs **no index mask**
-(unlike the WGSL guard at ``nbody3d.js:265``): its separation is exactly
-zero, so its contribution ``w * 0 == 0`` in IEEE arithmetic for any finite
-``w`` — which softening guarantees (eps2 > 0 is required).  Padding bodies
-are force-neutral because their ``G*m`` lane is 0 (the ``index < nBodies``
-source guard, ``nbody3d.js:257``); padded *targets* are frozen by the
-epilogue mask.
+eps2``, ``w = G*m_j * rsqrt(d2^3)``, all f32.  The self-pair needs no
+index mask (unlike the WGSL guard at ``nbody3d.js:265``): its separation
+is exactly zero, so it adds ``w * 0 == 0`` for any finite ``w``, which
+softening guarantees (``eps2 > 0`` is required).  Padding sources carry
+``G*m = 0`` and are force-neutral (the ``index < nBodies`` source guard,
+``nbody3d.js:257``).
 
-Two accumulation modes (measured on one v5e at N=262,144 with 2048x2048
-blocks, see ``benchmarks/kernel_sweep.py`` / ``fast_tune.py``):
-
-- ``exact`` (184.5 G pairs/s): everything on the VPU in f32; per source
-  tile, ``sum(w * d, axis=lanes)`` accumulates into the output block.
-  Matches the jnp oracle to ~1 ulp; 10k-step energy drift 7.1e-6.
-- ``fast``  (278.6 G pairs/s): the (BT, BS) weight matrix multiplies a
-  source matrix on the MXU in one bf16 pass.  Sources are pre-scaled by
-  ``G*m`` and split into three bf16 limbs per coordinate (~2^-24 relative),
-  so coordinate cancellation — the usual bf16 killer for N-body — is
-  eliminated; the only approximation is bf16 rounding of the *weights*
-  (~0.4% per-pair noise, unbiased), the TPU analog of the reference
-  relying on approximate hardware ``inverseSqrt``.  10k-step energy
-  drift 4.1e-4 (bound 1e-3, benchmarks/drift_check.py).
-
-Layouts: targets/state are AoS ``(N, 4)`` float32 exactly like the
-reference's storage buffers (``nbody3d.js:132``); sources are additionally
-passed transposed as ``(4, N)`` rows ``[x, y, z, G*m]`` so a source tile
-broadcasts along lanes while targets broadcast along sublanes — the
-(BT, BS) outer-product shape the VPU wants.
+:func:`direct_accel` wraps the kernel in a ``jax.custom_vjp`` whose
+backward is the plain reference VJP evaluated chunk by chunk
+(:func:`nbody3d_tpu.ops.force_jnp.accel_direct_vjp`), so ``jax.grad``
+through a rollout needs O(chunk * N) memory, not O(N^2).
 """
 
 from __future__ import annotations
@@ -64,1622 +40,161 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from nbody3d_tpu.ops.blocks import divisor_block
+from nbody3d_tpu.ops.force_jnp import accel_direct_vjp
 
-# Tuned on v5e (benchmarks/kernel_sweep.py, benchmarks/fast_tune.py):
-# throughput plateaus at large blocks; per-grid-step overhead (~0.4 us)
-# makes small blocks lose.
-DEFAULT_BLOCK_TARGET = 2048
-DEFAULT_BLOCK_SOURCE = 2048
-_VMEM_LIMIT = 100 * 1024 * 1024
+# Chosen by measurement on an H100 at 40,002 and 262,144 bodies
+# (benchmarks/direct_kernel_sweep.py; PERF.md, "Kernel decisions"):
+# 64x16 blocks on 4 warps were the fastest at 262,144 bodies and within
+# 7% of the fastest at 40,002.  Wider tiles (bt*bs*3 accumulator floats
+# above ~96 per thread) spill registers and run 30x slower.
+BLOCK_T = 64
+BLOCK_S = 16
+NUM_WARPS = 4
+NUM_STAGES = 2
+# Split the source loop until the grid has at least this many programs
+# (8 per SM): at 40,002 bodies a 4-way split of 128-wide blocks ran 20%
+# faster than no split.
+MIN_PROGRAMS = 1056
 
-MODES = ("exact", "fast", "sym")
-
-# diag_offset sentinel: "targets and sources share no global indices".
-NO_DIAG = 1 << 30
-
-
-def _pair_diffs(tgt, srcT_ref, eps2):
-    """(BT, BS) separations and softened squared distance
-    (nbody3d.js:233-234)."""
-    tx = tgt[:, 0:1]
-    ty = tgt[:, 1:2]
-    tz = tgt[:, 2:3]
-    dx = srcT_ref[0:1, :] - tx
-    dy = srcT_ref[1:2, :] - ty
-    dz = srcT_ref[2:3, :] - tz
-    # nested so Mosaic can emit fused multiply-adds
-    d2 = dx * dx + (dy * dy + (dz * dz + eps2))
-    return dx, dy, dz, d2
-
-
-def _accum_exact(j, out_ref, srcT_ref, tgt, eps2, bt):
-    """VPU path: w = gm * rsqrt(d2^3); reduce w*d over the source lanes and
-    accumulate into the revisited output block."""
-    dx, dy, dz, d2 = _pair_diffs(tgt, srcT_ref, eps2)
-    w = srcT_ref[3:4, :] * lax.rsqrt(d2 * (d2 * d2))  # nbody3d.js:235-236
-    part = jnp.concatenate(
-        [
-            jnp.sum(w * dx, axis=1, keepdims=True),
-            jnp.sum(w * dy, axis=1, keepdims=True),
-            jnp.sum(w * dz, axis=1, keepdims=True),
-            jnp.zeros((bt, 1), jnp.float32),
-        ],
-        axis=1,
-    )
-
-    @pl.when(j == 0)
-    def _():
-        out_ref[...] = part
-
-    @pl.when(j > 0)
-    def _():
-        out_ref[...] += part
-
-
-def _accum_fast(
-    i, j, acc_ref, srcT_ref, src10_ref, tgt, eps2, bt, bs,
-    diag_offset, diag_lo=0, diag_hi=NO_DIAG,
-):
-    """MXU path: A += inv3 @ S10 with inv3 rounded to bf16 by the MXU.
-
-    S10 columns (pre-scaled by gm = G*m, each quantity split into three
-    bf16 limbs h/m/l): [gm*x]_hml, [gm*y]_hml, [gm*z]_hml, [gm]_hml.  The
-    final accel is reassembled in the epilogue as
-    sum(position limbs) - t * sum(gm limbs).
-
-    EVERY column must be limb-split, including gm: the self-pair (and any
-    near-softening pair) cancels as ``w*(gm*x) - x*(w*gm)`` with
-    ``w ~ eps2^-1.5`` (1e6 at the default softening), so a single
-    raw-f32 gm column — rounded to bf16 by the MXU while the position
-    columns reconstruct exactly — would leave a residual of
-    ``w * x * gm * 2^-9`` ≈ O(10..100) absolute.  (Found the hard way;
-    see docs/DESIGN.md.)
-
-    Unlike exact mode, the self-pair MUST be excluded by index here (the
-    reference's ``index2 != bodyIndex`` guard, ``nbody3d.js:265``): its
-    contribution is ~0, but its softening-floor weight ``eps2**-1.5``
-    (1e6) times a heavy body's gm puts an O(1e9)-magnitude term into the
-    MXU's **f32 accumulator**, whose ulp then absorbs every real source
-    term in that row — measured 100% relative error on the galaxy
-    preset's central body (docs/DESIGN.md round-2 postmortem).  A pair is
-    a self-pair iff ``global_source_col == global_target_row +
-    diag_offset`` AND the target row lies in ``[diag_lo, diag_hi)`` (the
-    range restricts the diagonal to the source piece that actually aliases
-    the targets — needed by the 2-D grid strategy whose source set
-    concatenates non-adjacent global pieces); the masked dot only runs on
-    grid steps whose blocks straddle that diagonal segment, so the mask
-    costs nothing in the steady state.
-    """
-    _, _, _, d2 = _pair_diffs(tgt, srcT_ref, eps2)
-    inv3 = lax.rsqrt(d2 * (d2 * d2))
-
-    @pl.when(j == 0)
-    def _():
-        acc_ref[...] = jnp.zeros(acc_ref.shape, acc_ref.dtype)
-
-    row0 = i * bt + diag_offset  # target rows mapped into source-col space
-    col0 = j * bs
-    straddles = jnp.logical_and(row0 < col0 + bs, col0 < row0 + bt)
-    # ... and the target-row range [diag_lo, diag_hi) overlaps this block
-    straddles = jnp.logical_and(
-        straddles,
-        jnp.logical_and(diag_lo < (i + 1) * bt, i * bt < diag_hi),
-    )
-
-    @pl.when(straddles)
-    def _():
-        trows = lax.broadcasted_iota(jnp.int32, (bt, bs), 0) + i * bt
-        cols = lax.broadcasted_iota(jnp.int32, (bt, bs), 1) + col0
-        is_self = jnp.logical_and(
-            trows + diag_offset == cols,
-            jnp.logical_and(trows >= diag_lo, trows < diag_hi),
-        )
-        w = jnp.where(is_self, 0.0, inv3)
-        acc_ref[...] += jnp.dot(
-            w, src10_ref[...], preferred_element_type=jnp.float32
-        )
-
-    @pl.when(jnp.logical_not(straddles))
-    def _():
-        acc_ref[...] += jnp.dot(
-            inv3, src10_ref[...], preferred_element_type=jnp.float32
-        )
-
-
-def _fast_epilogue(acc_ref, tgt, bt):
-    """(BT, 16) limb accumulator -> (BT, 4) acceleration."""
-    a = acc_ref[...]
-    s = a[:, 9:10] + a[:, 10:11] + a[:, 11:12]  # sum of gm*inv3 (gm limbs)
-    ax = (a[:, 0:1] + a[:, 1:2] + a[:, 2:3]) - tgt[:, 0:1] * s
-    ay = (a[:, 3:4] + a[:, 4:5] + a[:, 5:6]) - tgt[:, 1:2] * s
-    az = (a[:, 6:7] + a[:, 7:8] + a[:, 8:9]) - tgt[:, 2:3] * s
-    return jnp.concatenate([ax, ay, az, jnp.zeros((bt, 1), jnp.float32)], axis=1)
-
-
-def _integrate(tgt, vel, acc_old, acc_new, dt, i, bt, n_real, n_pad):
-    """Fused frame-shifted Verlet (nbody3d.js:280-283) with the
-    index < nBodies target guard."""
-    half_dt = dt * 0.5
-    new_vel = vel + (acc_old + acc_new) * half_dt
-    new_pos = tgt + (new_vel + acc_new * half_dt) * dt
-    if n_real < n_pad:
-        rows = lax.broadcasted_iota(jnp.int32, (bt, 1), 0) + i * bt
-        valid = rows < n_real
-        new_pos = jnp.where(valid, new_pos, tgt)
-        new_vel = jnp.where(valid, new_vel, vel)
-        acc_new = jnp.where(valid, acc_new, 0.0)
-    return new_pos, new_vel, acc_new
-
-
-def _fused_kernel_exact(
-    dt_ref, srcT_ref, tgt_ref, vel_ref, acc_old_ref,
-    npos_ref, nvel_ref, nacc_ref,
-    *, eps2, n_real, n_pad, bt, bs,
-):
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    ns = pl.num_programs(1)
-    tgt = tgt_ref[...]
-    _accum_exact(j, nacc_ref, srcT_ref, tgt, eps2, bt)
-
-    @pl.when(j == ns - 1)
-    def _():
-        p, v, a = _integrate(
-            tgt, vel_ref[...], acc_old_ref[...], nacc_ref[...],
-            dt_ref[0], i, bt, n_real, n_pad,
-        )
-        npos_ref[...] = p
-        nvel_ref[...] = v
-        nacc_ref[...] = a
-
-
-def _fused_kernel_fast(
-    dt_ref, srcT_ref, src10_ref, tgt_ref, vel_ref, acc_old_ref,
-    npos_ref, nvel_ref, nacc_ref, acc_scr,
-    *, eps2, n_real, n_pad, bt, bs,
-):
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    ns = pl.num_programs(1)
-    tgt = tgt_ref[...]
-    # Fused path is single-chip targets == sources: diag offset 0.
-    _accum_fast(i, j, acc_scr, srcT_ref, src10_ref, tgt, eps2, bt, bs, 0)
-
-    @pl.when(j == ns - 1)
-    def _():
-        acc_new = _fast_epilogue(acc_scr, tgt, bt)
-        p, v, a = _integrate(
-            tgt, vel_ref[...], acc_old_ref[...], acc_new,
-            dt_ref[0], i, bt, n_real, n_pad,
-        )
-        npos_ref[...] = p
-        nvel_ref[...] = v
-        nacc_ref[...] = a
-
-
-def _force_kernel_exact(srcT_ref, tgt_ref, out_ref, *, eps2, bt, bs):
-    """Force-only (multi-chip ring: integration happens after all source
-    shards are accumulated, SURVEY §5.7)."""
-    j = pl.program_id(1)
-    _accum_exact(j, out_ref, srcT_ref, tgt_ref[...], eps2, bt)
-
-
-def _force_kernel_fast(
-    diag_ref, srcT_ref, src10_ref, tgt_ref, out_ref, acc_scr, *, eps2, bt, bs
-):
-    """Traced-diagonal variant: used when the self-pair diagonal's position
-    is only known at runtime (2-D grid / gather shardings, where it depends
-    on ``lax.axis_index``).  The conditional masked/unmasked dot pair costs
-    ~30% throughput vs the condition-free kernels below (Mosaic pipelines
-    predicated dots poorly) — statically-known diagonals take the split
-    path in :func:`accel_pallas` instead."""
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    ns = pl.num_programs(1)
-    tgt = tgt_ref[...]
-    _accum_fast(
-        i, j, acc_scr, srcT_ref, src10_ref, tgt, eps2, bt, bs,
-        diag_ref[0], diag_ref[1], diag_ref[2],
-    )
-
-    @pl.when(j == ns - 1)
-    def _():
-        out_ref[...] = _fast_epilogue(acc_scr, tgt, bt)
-
-
-def _force_kernel_fast_nomask(
-    srcT_ref, src10_ref, tgt_ref, out_ref, acc_scr, *, eps2, bt, bs
-):
-    """Condition-free fast kernel: no self-pairs anywhere in this grid
-    (disjoint target/source sets, or the diagonal block is handled by the
-    separate :func:`_force_kernel_fast_diag` call).  One unconditional dot
-    per grid step — the full-throughput path."""
-    j = pl.program_id(1)
-    ns = pl.num_programs(1)
-    tgt = tgt_ref[...]
-    _, _, _, d2 = _pair_diffs(tgt, srcT_ref, eps2)
-    inv3 = lax.rsqrt(d2 * (d2 * d2))
-    part = jnp.dot(inv3, src10_ref[...], preferred_element_type=jnp.float32)
-
-    @pl.when(j == 0)
-    def _():
-        acc_scr[...] = part
-
-    @pl.when(j > 0)
-    def _():
-        acc_scr[...] += part
-
-    @pl.when(j == ns - 1)
-    def _():
-        out_ref[...] = _fast_epilogue(acc_scr, tgt, bt)
-
-
-def _force_kernel_fast_diag(
-    srcT_ref, src10_ref, tgt_ref, out_ref, *, eps2, bt, bs, off, lo, hi
-):
-    """Diagonal-block companion of :func:`_force_kernel_fast_nomask`: grid
-    (nt,), one always-masked dot per target block against its single
-    diagonal-straddling source block (static offset).  Outputs this
-    partial's epilogue; the fast epilogue is linear in the accumulator, so
-    the two calls' (N, 4) outputs simply add."""
-    i = pl.program_id(0)
-    tgt = tgt_ref[...]
-    _, _, _, d2 = _pair_diffs(tgt, srcT_ref, eps2)
-    inv3 = lax.rsqrt(d2 * (d2 * d2))
-    trows = lax.broadcasted_iota(jnp.int32, (bt, bs), 0) + i * bt
-    jd = (i * bt + off) // bs
-    cols = lax.broadcasted_iota(jnp.int32, (bt, bs), 1) + jd * bs
-    is_self = jnp.logical_and(
-        trows + off == cols, jnp.logical_and(trows >= lo, trows < hi)
-    )
-    w = jnp.where(is_self, 0.0, inv3)
-    part = jnp.dot(w, src10_ref[...], preferred_element_type=jnp.float32)
-    out_ref[...] = _fast_epilogue(part, tgt, bt)
-
-
-# --------------------------------------------------------------- host prep
-def _round_to_bf16_f32(v: jax.Array) -> jax.Array:
-    """Round f32 to the nearest bf16 value, RESULT KEPT IN f32 — via
-    integer bit arithmetic, NOT dtype casts.
-
-    The obvious ``v.astype(bf16).astype(f32)`` is numerically identical
-    but UNSAFE here: when the limb construction lives in the same jitted
-    program as the bf16 MXU dot that consumes it, XLA's excess-precision
-    convert folding cancels the f32->bf16->f32 round trips and simplifies
-    the residual limbs ``m = bf16(v - bf16(v))`` to ``v - v = 0`` —
-    silently deleting the m/l limb columns (caught on hardware: every
-    residual accumulator column came back exactly zero, ~4% force error
-    near heavy bodies; round-1 shipped this latent).  Bit-level
-    round-to-nearest-even is opaque to that rewrite.
-    """
-    u = lax.bitcast_convert_type(v, jnp.uint32)
-    rounded = (u + jnp.uint32(0x7FFF) + ((u >> 16) & jnp.uint32(1))) & jnp.uint32(
-        0xFFFF0000
-    )
-    out = lax.bitcast_convert_type(rounded, jnp.float32)
-    # The +0x7FFF carry can launder NaN payloads into Inf/0; keep NaNs NaN
-    # so corrupt inputs propagate instead of becoming finite forces.
-    return jnp.where(jnp.isnan(v), v, out)
-
-
-def _limb3_cols(v: jax.Array) -> list[jax.Array]:
-    """Three bf16-representable f32 limbs of ``v`` (h + m + l == v to f32
-    exactness); fold-proof (see :func:`_round_to_bf16_f32`)."""
-    h = _round_to_bf16_f32(v)
-    rem = v - h
-    m = _round_to_bf16_f32(rem)
-    return [h, m, rem - m]
+# Engine padding multiple for the kernel backends: whole target and
+# source blocks, so the wrapper never pads inside the step.
+PAD_MULTIPLE = max(BLOCK_T, BLOCK_S)
 
 
 def src_transposed(pos_mass: jax.Array, G) -> jax.Array:
-    """(4, N) source rows [x, y, z, G*m]; G folded in so the kernel never
-    reads it (the reference reads it from the uniform block each pair,
-    ``nbody3d.js:236`` — folding is the XLA-friendly equivalent)."""
-    gm = (jnp.float32(G) * pos_mass[:, 3])[None, :]
-    return jnp.concatenate([pos_mass[:, :3].T, gm], axis=0)
-
-
-def src_limbs(pos_mass: jax.Array, G) -> jax.Array:
-    """(N, 16) fast-mode source matrix: gm*x per coordinate AND gm itself,
-    each split into three bf16 limbs (h = bf16(v), m = bf16(v-h),
-    l = v-h-m — together ~2^-24 relative); padded to 16 lanes.
-    Pre-splitting makes the MXU's implicit bf16 input rounding lossless
-    for everything except the per-pair weights — see
-    :func:`_accum_fast` for why gm must be split too."""
-    gm = jnp.float32(G) * pos_mass[:, 3:4]
-
-    cols = []
-    for c in range(3):
-        cols.extend(_limb3_cols(gm * pos_mass[:, c : c + 1]))
-    cols.extend(_limb3_cols(gm))
-    n = pos_mass.shape[0]
-    cols.append(jnp.zeros((n, 4), jnp.float32))
-    return jnp.concatenate(cols, axis=1)
-
-
-def _check_blocks(n: int, bt: int, bs: int, what: str) -> None:
-    if n % bt != 0 or n % bs != 0:
-        raise ValueError(
-            f"{what}: padded N={n} must be divisible by block_target={bt} "
-            f"and block_source={bs}; pad with nbody3d_tpu.state.pad_count"
-        )
-
-
-def _compiler_params():
-    return pltpu.CompilerParams(
-        dimension_semantics=("parallel", "arbitrary"),
-        vmem_limit_bytes=_VMEM_LIMIT,
+    """(N, 4) ``[x, y, z, m]`` -> (4, N) rows ``[x, y, z, G*m]``."""
+    pos_mass = jnp.asarray(pos_mass, jnp.float32)
+    return jnp.concatenate(
+        [pos_mass[:, :3].T, (jnp.float32(G) * pos_mass[:, 3])[None, :]], axis=0
     )
 
 
-def _cost(n_t, n_s, nt_blocks):
-    return pl.CostEstimate(
-        flops=16 * n_t * n_s,
-        bytes_accessed=nt_blocks * n_s * 16 + 7 * n_t * 16,
-        transcendentals=n_t * n_s,
-    )
+def _kernel(tgt_ref, src_ref, out_ref, *, eps2, bs, tiles, per):
+    tx = tgt_ref[0, :]
+    ty = tgt_ref[1, :]
+    tz = tgt_ref[2, :]
 
+    def body(j, acc):
+        ax, ay, az = acc
+        sl = pl.ds(pl.multiple_of(j * bs, bs), bs)
+        dx = src_ref[0, sl][None, :] - tx[:, None]
+        dy = src_ref[1, sl][None, :] - ty[:, None]
+        dz = src_ref[2, sl][None, :] - tz[:, None]
+        d2 = dx * dx + (dy * dy + (dz * dz + eps2))
+        w = src_ref[3, sl][None, :] * lax.rsqrt(d2 * d2 * d2)
+        return ax + w * dx, ay + w * dy, az + w * dz
 
-# ------------------------------------------------------------- public API
-@functools.partial(
-    jax.jit,
-    static_argnames=("eps2", "n_real", "block_target", "block_source", "mode", "interpret"),
-)
-def fused_step_pallas(
-    pos_mass: jax.Array,
-    vel: jax.Array,
-    accel: jax.Array,
-    dt: jax.Array | float,
-    G: jax.Array | float,
-    *,
-    eps2: float = 1e-4,
-    n_real: int,
-    block_target: int = DEFAULT_BLOCK_TARGET,
-    block_source: int = DEFAULT_BLOCK_SOURCE,
-    mode: str = "exact",
-    interpret: bool = False,
-) -> tuple[jax.Array, jax.Array, jax.Array]:
-    """One fused force+Verlet step. Returns (new_pos_mass, new_vel, new_accel).
-
-    ``dt`` and ``G`` are runtime scalars (no recompile when they change —
-    the reference's slider semantics, ``util.js:38-54``).  ``eps2`` must be
-    positive (it is what makes the unmasked self-pair finite).
-    """
-    if eps2 <= 0:
-        raise ValueError("eps2 must be > 0 (softening also guards the self-pair)")
-    if mode not in MODES:
-        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    n = pos_mass.shape[0]
-    bt, bs = block_target, block_source
-    _check_blocks(n, bt, bs, "fused_step_pallas")
-    nt, ns = n // bt, n // bs
-
-    srcT = src_transposed(pos_mass, G)
-    dt_arr = jnp.reshape(jnp.asarray(dt, jnp.float32), (1,))
-    out_shape = [jax.ShapeDtypeStruct((n, 4), jnp.float32)] * 3
-    blk4 = lambda: pl.BlockSpec((bt, 4), lambda i, j: (i, 0), memory_space=pltpu.VMEM)
-
-    if mode == "exact":
-        kernel = functools.partial(
-            _fused_kernel_exact, eps2=float(eps2), n_real=int(n_real), n_pad=n, bt=bt, bs=bs
-        )
-        result = pl.pallas_call(
-            kernel,
-            grid=(nt, ns),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),  # dt
-                pl.BlockSpec((4, bs), lambda i, j: (0, j), memory_space=pltpu.VMEM),
-                blk4(), blk4(), blk4(),
-            ],
-            out_specs=[blk4(), blk4(), blk4()],
-            out_shape=out_shape,
-            compiler_params=_compiler_params(),
-            cost_estimate=_cost(n, n, nt),
-            interpret=interpret,
-        )(dt_arr, srcT, pos_mass, vel, accel)
+    zero = jnp.zeros((tx.shape[0], bs), jnp.float32)
+    if per == tiles:
+        lo, hi = 0, tiles
     else:
-        src10 = src_limbs(pos_mass, G)
-        kernel = functools.partial(
-            _fused_kernel_fast, eps2=float(eps2), n_real=int(n_real), n_pad=n, bt=bt, bs=bs
-        )
-        result = pl.pallas_call(
-            kernel,
-            grid=(nt, ns),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),  # dt
-                pl.BlockSpec((4, bs), lambda i, j: (0, j), memory_space=pltpu.VMEM),
-                pl.BlockSpec((bs, 16), lambda i, j: (j, 0), memory_space=pltpu.VMEM),
-                blk4(), blk4(), blk4(),
-            ],
-            out_specs=[blk4(), blk4(), blk4()],
-            out_shape=out_shape,
-            scratch_shapes=[pltpu.VMEM((bt, 16), jnp.float32)],
-            compiler_params=_compiler_params(),
-            cost_estimate=_cost(n, n, nt),
-            interpret=interpret,
-        )(dt_arr, srcT, src10, pos_mass, vel, accel)
-    return tuple(result)
-
-
-# ------------------------------------------------------- symmetric schedule
-
-
-def sym_operands(
-    pos_mass: jax.Array, G, block: int, center: bool = True
-) -> tuple[jax.Array, jax.Array]:
-    """MXU operands for mode='sym': ``(s16 (N,16), cent (nt,4))``.
-
-    ``s16`` is the limb matrix of **block-centered** sources: columns 0-8
-    are three bf16 limbs each of ``gm*(x-c)``, ``gm*(y-c)``, ``gm*(z-c)``
-    with ``c`` the body's own block centroid; columns 9-11 are gm limbs;
-    12-15 zero (the kernel writes its c*W running correction there).
-    Centering shrinks the magnitudes the MXU's f32 accumulator sums from
-    O(|x|) to O(block radius) — with Morton-ordered bodies that is what
-    keeps fast-path momentum error near reduction-order (docs/DESIGN.md).
-    The same matrix serves both dots (the reverse dot contracts it in TN
-    orientation), so no transposed copy exists.  Any centroid is
-    *algebraically* exact (the kernel adds ``c * sum(w*gm)`` back), so
-    padded blocks' meaningless centroids are harmless.
-    """
-    n = pos_mass.shape[0]
-    nt = n // block
-    pos = pos_mass[:, :3]
-    cent = jnp.mean(pos.reshape(nt, block, 3), axis=1)  # (nt, 3)
-    if not center:  # debug/ablation: uncentered operands (fast-mode style)
-        cent = jnp.zeros_like(cent)
-    c_per = jnp.repeat(cent, block, axis=0)  # (n, 3)
-    gm = jnp.float32(G) * pos_mass[:, 3:4]
-    cols: list[jax.Array] = []
-    for c in range(3):
-        cols.extend(_limb3_cols(gm[:, 0] * (pos[:, c] - c_per[:, c])))
-    cols.extend(_limb3_cols(gm[:, 0]))
-    s16 = jnp.stack(cols, axis=1)  # (n, 12)
-    s16 = jnp.concatenate([s16, jnp.zeros((n, 4), jnp.float32)], axis=1)
-    cent4 = jnp.concatenate([cent, jnp.zeros((nt, 1), jnp.float32)], axis=1)
-    return s16, cent4
-
-
-def _sym_diag_kernel(mask_ref, srcT_ref, tgt_ref, s16_ref, cent_ref, out_ref, *, eps2, b):
-    """Diagonal blocks of the Newton-3 schedule: grid ``(nt,)``, one
-    ALWAYS-masked forward dot per block serving both directions of every
-    in-block pair (the index mask kills the self-pair — see
-    :func:`_accum_fast` on why fast paths must mask it).  Condition-free
-    by construction: ``pl.when``-predicated dots pipeline poorly on
-    Mosaic, which is why the sym schedule compiles as three separate
-    unconditional pallas calls instead of one round-robin grid
-    (measured 401 vs 311 G-int/s at N=256k; docs/DESIGN.md).
-
-    The self-pair mask arrives as a VMEM-resident ``(b, b)`` ones-minus-eye
-    operand (constant index map) and is applied as one multiply: building
-    it in-kernel from two ``broadcasted_iota`` + compare + select measured
-    56% slower for the whole call (4.51 vs 2.89/3.01 ms at N=256k,
-    benchmarks/sym_profile.py)."""
-    i = pl.program_id(0)
-    tgt = tgt_ref[...]
-    _, _, _, d2 = _pair_diffs(tgt, srcT_ref, eps2)
-    inv3 = lax.rsqrt(d2 * (d2 * d2))
-    w = inv3 * mask_ref[...]
-    part = jnp.dot(w, s16_ref[...], preferred_element_type=jnp.float32)
-    wsum = part[:, 9:10] + part[:, 10:11] + part[:, 11:12]
-    # c*W correction as one broadcast fma — see _sym_hops_kernel.
-    one = jnp.ones((1, 1), jnp.float32)
-    crow = jnp.concatenate(
-        [
-            jnp.zeros((1, 12), jnp.float32),
-            cent_ref[i, 0] * one,
-            cent_ref[i, 1] * one,
-            cent_ref[i, 2] * one,
-            jnp.zeros((1, 1), jnp.float32),
-        ],
-        axis=1,
-    )
-    out_ref[...] = part + wsum * crow
-
-
-def _sym_hops_kernel(
-    srcT_ref, tgt_ref, s16j_ref, s16i_ref, cent_ref, out_tgt_ref, out_src_ref,
-    *, eps2, b, nt, k0,
-):
-    """Off-diagonal hops of the Newton-3 schedule: step ``(i, k)`` pairs
-    target block ``i`` with source block ``j = (i + k0 + k) mod nt`` —
-    every step is active, so both dots run UNCONDITIONALLY (no ``pl.when``
-    around compute; see :func:`_sym_diag_kernel`).  The expensive per-pair
-    weight chain (d2, cube, rsqrt — the VPU budget) runs ONCE per
-    unordered pair; two MXU dots over the SAME weight matrix deliver both
-    sides:
-
-      forward:  out_tgt[i] += inv3 @ s16[j]                      (B,B)@(B,16)
-      reverse:  out_src[j] += dot_general(s16[i], inv3, contract dim0 x dim0)
-
-    The reverse contraction runs in TN orientation over the weight
-    matrix's TARGET dim, producing (16, B) directly in the accumulator's
-    layout: a plain transposed formulation — ``dot(s16[i].T (16,B),
-    inv3)`` — lowers to a low-precision accumulation path on v5e and cost
-    4x accuracy (measured; docs/DESIGN.md).  The (nt, 16, B) accumulator
-    layout keeps B on the lane dimension — (nt, B, 16) pads its 16-wide
-    minor dim to 128 lanes and 8x the VMEM.  Input index maps are LINEAR
-    (``i + k0 + k`` over wrap-extended arrays): modular index maps defeat
-    Mosaic's prefetch pipelining (~10% measured).
-
-    ``w_ij == w_ji`` holds *exactly* (shared bf16-rounded inv3), so the
-    pair antisymmetry the reference gets from evaluating ``bodyAccel``
-    twice (``nbody3d.js:232-237``) is preserved by construction; both
-    sides carry the running ``c * sum(w*gm)`` correction in columns 12-14
-    so the epilogue can un-center.
-    """
-    i = pl.program_id(0)
-    k = pl.program_id(1)
-    j = lax.rem(i + k0 + k, nt)  # true block id (out_src accumulator index)
-
-    @pl.when(jnp.logical_and(i == 0, k == 0))
-    def _():
-        out_src_ref[...] = jnp.zeros(out_src_ref.shape, out_src_ref.dtype)
-
-    @pl.when(k == 0)
-    def _():
-        out_tgt_ref[...] = jnp.zeros(out_tgt_ref.shape, out_tgt_ref.dtype)
-
-    tgt = tgt_ref[...]
-    _, _, _, d2 = _pair_diffs(tgt, srcT_ref, eps2)
-    inv3 = lax.rsqrt(d2 * (d2 * d2))
-
-    # The running c*W un-centering correction lands in columns 12-14 as
-    # ONE broadcast fma against a tiny in-kernel centroid row/column
-    # ([0]*12 + [cx, cy, cz, 0]): part's own columns 12-15 are zero
-    # (s16's are), so ``part + wsum * crow`` equals the old
-    # slice-and-concatenate form value-for-value while skipping the two
-    # lane-minor (B, 16) concats per grid step — those concats cost
-    # 4.5% of the whole hops call (503 -> 481 G-int/s, measured by
-    # benchmarks/step_slope.py vs the roofline ablation that omits
-    # them).  The (1, 16)/(16, 1) concats below are b-independent; a
-    # precomputed VMEM operand would violate the (8, 128) block floor.
-    one = jnp.ones((1, 1), jnp.float32)
-    z1 = jnp.zeros((1, 1), jnp.float32)
-    crow = jnp.concatenate(
-        [
-            jnp.zeros((1, 12), jnp.float32),
-            cent_ref[i + k0 + k, 0] * one,
-            cent_ref[i + k0 + k, 1] * one,
-            cent_ref[i + k0 + k, 2] * one,
-            z1,
-        ],
-        axis=1,
-    )
-    part = jnp.dot(inv3, s16j_ref[...], preferred_element_type=jnp.float32)
-    wsum = part[:, 9:10] + part[:, 10:11] + part[:, 11:12]
-    out_tgt_ref[...] += part + wsum * crow
-
-    part_r = lax.dot_general(
-        s16i_ref[...],
-        inv3,
-        dimension_numbers=(((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )  # contract over targets -> (16, B)
-    wsum_r = part_r[9:10, :] + part_r[10:11, :] + part_r[11:12, :]
-    ccol = jnp.concatenate(
-        [
-            jnp.zeros((12, 1), jnp.float32),
-            cent_ref[i, 0] * one,
-            cent_ref[i, 1] * one,
-            cent_ref[i, 2] * one,
-            z1,
-        ],
-        axis=0,
-    )
-    out_src_ref[j] = out_src_ref[j] + (part_r + ccol * wsum_r)
-
-
-def _sym_hops_raw(
-    pos_mass: jax.Array,
-    srcT: jax.Array,
-    s16: jax.Array,
-    cent: jax.Array,
-    *,
-    eps2: float,
-    block: int,
-    interpret: bool,
-    pre_extended: bool = False,
-) -> tuple[
-    jax.Array | None, jax.Array | None, jax.Array | None, jax.Array | None
-]:
-    """Off-diagonal hop calls of the Newton-3 schedule, RAW accumulators.
-
-    The source-side operands are wrap-extended so the hop grids index
-    them linearly (``i + k0 + k``: modular maps defeat Mosaic prefetch,
-    ~10% measured) — either already by the prep call
-    (``pre_extended=True``: ``srcT``/``s16`` carry ``half+1`` extra wrap
-    blocks from :func:`_extend_tail_pallas`) or here via XLA concats.
-    Runs call B (middle hops) and, for even block counts, call C (the
-    shared half-hop).  Returns ``(t_b, s_b, t_c, s_c)`` — forward
-    partials in row layout ``(N, 16)`` / ``(half*B, 16)`` and reverse
-    partials in the ``(nt, 16, B)`` accumulator layout — with ``None``
-    for calls that don't exist (B for ``nt <= 2`` even, C for odd
-    ``nt``).  Shared by :func:`accel_sym_pallas` (XLA combine) and the
-    fused step epilogue (in-kernel combine + Verlet)."""
-    n = pos_mass.shape[0]
-    nt = n // block
-    half = nt // 2
-    ext = (half + 1) * block
-    if pre_extended:
-        srcT_e, s16_e = srcT, s16
-        if srcT.shape[1] != n + ext or s16.shape[0] != n + ext:
-            raise ValueError("pre_extended operands have the wrong tail size")
-    else:
-        srcT_e = jnp.concatenate([srcT, srcT[:, :ext]], axis=1)
-        s16_e = jnp.concatenate([s16, s16[:ext]], axis=0)
-    cent_e = jnp.concatenate([cent, cent[: half + 1]], axis=0)
-    cparams = pltpu.CompilerParams(
-        dimension_semantics=("arbitrary", "arbitrary"),
-        vmem_limit_bytes=_VMEM_LIMIT,
-    )
-
-    def hops_call(k0, nk, grid_i):
-        kernel = functools.partial(
-            _sym_hops_kernel, eps2=float(eps2), b=block, nt=nt, k0=k0
-        )
-        return pl.pallas_call(
-            kernel,
-            grid=(grid_i, nk),
-            in_specs=[
-                pl.BlockSpec((4, block), lambda i, k: (0, i + k0 + k), memory_space=pltpu.VMEM),
-                pl.BlockSpec((block, 4), lambda i, k: (i, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((block, 16), lambda i, k: (i + k0 + k, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((block, 16), lambda i, k: (i, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-            ],
-            out_specs=[
-                pl.BlockSpec((block, 16), lambda i, k: (i, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((nt, 16, block), lambda i, k: (0, 0, 0), memory_space=pltpu.VMEM),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((grid_i * block, 16), jnp.float32),
-                jax.ShapeDtypeStruct((nt, 16, block), jnp.float32),
-            ],
-            compiler_params=cparams,
-            cost_estimate=_cost(grid_i * block, nk * block, grid_i),
-            interpret=interpret,
-        )(srcT_e, pos_mass, s16_e, s16, cent_e)
-
-    # ---- call B: middle hops — every (i, k) step is a real pair.
-    # Even nt: k = 1..half-1 (the half-distance is shared, handled in C);
-    # odd nt: k = 1..half covers every remaining pair exactly once.
-    t_b = s_b = t_c = s_c = None
-    nk_b = half - 1 if nt % 2 == 0 else half
-    if nk_b > 0:
-        t_b, s_b = hops_call(1, nk_b, nt)
-    # ---- call C (even nt): the shared half-hop, computed only by the
-    # first half of the rows — the grid covers exactly those, so no
-    # predication is needed.
-    if nt % 2 == 0:
-        t_c, s_c = hops_call(half, 1, half)
-    return t_b, s_b, t_c, s_c
-
-
-def _limb3_cols_2d(v: jax.Array) -> list[jax.Array]:
-    """In-kernel limb split of a (b, 1) column (same bit-level RTNE as
-    :func:`_limb3_cols`; Mosaic executes the integer form natively)."""
-    h = _round_to_bf16_f32(v)
-    rem = v - h
-    m = _round_to_bf16_f32(rem)
-    return [h, m, rem - m]
-
-
-def _sym_diag_prep_kernel(
-    mask_ref, g_ref, pm_ref, out_ref, s16_ref, cent_ref, srcT_ref, *, b
-):
-    """Fused diagonal + operand build: one grid step per block computes the
-    block's sym operands (bf16 limbs of block-centered gm*(x-c), gm limbs,
-    centroid — :func:`sym_operands`) IN-KERNEL from the raw ``pos_mass``
-    block, uses them for the masked diagonal dot, and writes them out for
-    the hops calls — collapsing the XLA-side operand prep chain (the ~2 ms
-    residual at the reference-default N=40,002, VERDICT r2 #3) into a
-    kernel that already holds the data in VMEM.
-
-    Round-5 layout rework: the limb construction runs on ``(4, b)``
-    TRANSPOSED streams (bodies on the lane dimension — full 128-lane
-    utilization) instead of per-column ``(b, 1)`` chains that use 1 lane
-    in 128; the two layout changes are EXACT identity matmuls on the MXU
-    (``Precision.HIGHEST``; a direct in-kernel ``jnp.transpose`` relayout
-    faulted the TPU worker).  This also moves the ``(4, N)`` transposed
-    source build in-kernel (4th output), removing the last XLA prep op.
-    Outputs: the diag acc16 block, ``s16`` (b, 16), the block centroid
-    row of ``cent`` (whole-array output — a (1, 4) block would violate
-    the (8, 128) tile floor), and the ``srcT`` (4, b) block."""
-    i = pl.program_id(0)
-    tgt = pm_ref[...]
-    eye4 = jnp.eye(4, dtype=jnp.float32)
-    tgtT = lax.dot_general(  # exact (4, b) transpose via identity matmul
-        eye4, tgt,
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=lax.Precision.HIGHEST,
-    )
-    gmT = g_ref[0] * tgtT[3:4, :]  # (1, b)
-
-    inv_b = jnp.float32(1.0 / b)
-    cx = jnp.sum(tgtT[0:1, :]) * inv_b
-    cy = jnp.sum(tgtT[1:2, :]) * inv_b
-    cz = jnp.sum(tgtT[2:3, :]) * inv_b
-    cvec = jnp.concatenate(
-        [cx.reshape(1, 1), cy.reshape(1, 1), cz.reshape(1, 1)], axis=0
-    )  # (3, 1)
-    prod = jnp.concatenate([gmT * (tgtT[:3, :] - cvec), gmT], axis=0)  # (4, b)
-    h = _round_to_bf16_f32(prod)
-    rem = prod - h
-    m = _round_to_bf16_f32(rem)
-    low = rem - m
-    rows: list[jax.Array] = []
-    for c in range(4):
-        rows.extend([h[c : c + 1, :], m[c : c + 1, :], low[c : c + 1, :]])
-    rows.append(jnp.zeros((4, b), jnp.float32))
-    s16t = jnp.concatenate(rows, axis=0)  # (16, b)
-    eye16 = jnp.eye(16, dtype=jnp.float32)
-    s16 = lax.dot_general(  # exact (b, 16) transpose via identity matmul
-        s16t, eye16,
-        dimension_numbers=(((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=lax.Precision.HIGHEST,
-    )
-    s16_ref[...] = s16
-    zero = jnp.zeros((1, 1), jnp.float32)
-    cent_ref[pl.ds(i, 1), :] = jnp.concatenate(
-        [cx.reshape(1, 1), cy.reshape(1, 1), cz.reshape(1, 1), zero], axis=1
-    )
-    srcT = jnp.concatenate([tgtT[:3, :], gmT], axis=0)  # (4, b)
-    srcT_ref[...] = srcT
-
-    _, _, _, d2 = _pair_diffs(tgt, srcT, g_ref[1])
-    inv3 = lax.rsqrt(d2 * (d2 * d2))
-    w = inv3 * mask_ref[...]
-    part = jnp.dot(w, s16, preferred_element_type=jnp.float32)
-    wsum = part[:, 9:10] + part[:, 10:11] + part[:, 11:12]
-    # c*W correction as one broadcast fma against a (1, 16) centroid row
-    # (part's columns 12-15 are zero) — see the concat-cost note in
-    # _sym_hops_kernel.
-    crow = jnp.concatenate(
-        [
-            jnp.zeros((1, 12), jnp.float32),
-            cx.reshape(1, 1),
-            cy.reshape(1, 1),
-            cz.reshape(1, 1),
-            jnp.zeros((1, 1), jnp.float32),
-        ],
-        axis=1,
-    )
-    out_ref[...] = part + wsum * crow
-
-
-def sym_diag_prep_pallas(
-    pos_mass: jax.Array,
-    G: jax.Array | float,
-    *,
-    eps2: float,
-    block: int,
-    interpret: bool = False,
-    ext_blocks: int = 0,
-) -> tuple[jax.Array, jax.Array, jax.Array, jax.Array]:
-    """Run the fused diagonal+prep call: returns ``(acc16 (N,16),
-    s16, cent (nt,4), srcT)`` — the diag partials plus every operand the
-    hops calls need; no XLA-side prep remains (the source transpose is
-    the kernel's 4th output, built by an exact identity matmul).
-
-    ``ext_blocks > 0`` allocates ``s16``/``srcT`` with that many extra
-    WRAP blocks (``(n + ext, 16)`` / ``(4, n + ext)``) and fills the tail
-    with copies of blocks ``0..ext_blocks-1`` via a tiny aliased copy
-    pass (:func:`_extend_tail_pallas`) — the hop calls then index the
-    extended buffers linearly with no per-step XLA concatenate (the
-    concats cost ~1 ms/step at N=256k; modular index maps cost more,
-    docs/DESIGN.md)."""
-    n = pos_mass.shape[0]
-    nt = n // block
-    n_out = n + ext_blocks * block
-    mask = 1.0 - jnp.eye(block, dtype=jnp.float32)
-    g_arr = jnp.stack(
-        [jnp.asarray(G, jnp.float32), jnp.float32(eps2)]
-    )
-    acc16, s16, cent, srcT = pl.pallas_call(
-        functools.partial(_sym_diag_prep_kernel, b=block),
-        grid=(nt,),
-        in_specs=[
-            pl.BlockSpec((block, block), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # [G, eps2]
-            pl.BlockSpec((block, 4), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((block, 16), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((block, 16), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((nt, 4), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((4, block), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((n, 16), jnp.float32),
-            jax.ShapeDtypeStruct((n_out, 16), jnp.float32),
-            jax.ShapeDtypeStruct((nt, 4), jnp.float32),
-            jax.ShapeDtypeStruct((4, n_out), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",), vmem_limit_bytes=_VMEM_LIMIT
-        ),
-        cost_estimate=_cost(n, block, nt),
-        interpret=interpret,
-    )(mask, g_arr, pos_mass)
-    if ext_blocks > 0:
-        s16, srcT = _extend_tail_pallas(
-            s16, srcT, nt=nt, ext_blocks=ext_blocks, block=block,
-            interpret=interpret,
-        )
-    return acc16, s16, cent, srcT
-
-
-def _extend_tail_kernel(s16_ref, srcT_ref, s16o_ref, srcTo_ref):
-    s16o_ref[...] = s16_ref[...]
-    srcTo_ref[...] = srcT_ref[...]
-
-
-def _extend_tail_pallas(
-    s16: jax.Array,
-    srcT: jax.Array,
-    *,
-    nt: int,
-    ext_blocks: int,
-    block: int,
-    interpret: bool,
-) -> tuple[jax.Array, jax.Array]:
-    """Fill the wrap tail of the extended sym operands in place: block
-    ``nt + i`` <- block ``i`` for ``i < ext_blocks``, via
-    ``input_output_aliases`` so only the tail moves (copying the whole
-    array through an XLA concatenate costs ~1 ms/step at N=256k)."""
-    return pl.pallas_call(
-        _extend_tail_kernel,
-        grid=(ext_blocks,),
-        in_specs=[
-            pl.BlockSpec((block, 16), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((4, block), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((block, 16), lambda i: (nt + i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((4, block), lambda i: (0, nt + i), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct(s16.shape, jnp.float32),
-            jax.ShapeDtypeStruct(srcT.shape, jnp.float32),
-        ],
-        input_output_aliases={0: 0, 1: 1},
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",), vmem_limit_bytes=_VMEM_LIMIT
-        ),
-        interpret=interpret,
-    )(s16, srcT)
-
-
-def _combine16(a: jax.Array, pos_mass: jax.Array) -> jax.Array:
-    """(N,16) limb accumulator -> (N,4) accelerations: ``a = sum(position
-    limbs) + c*W correction - x * sum(gm limbs)``.
-
-    Pure-jnp reference semantics.  The hot paths use
-    :func:`combine16_pallas` instead: when THIS version is fused into the
-    accumulator add/transpose chain of the composed sym step, its fifteen
-    single-column slices of the (N, 16) operand de-vectorize the fusion
-    and cost ~17 ms at N=256k — 10% of the whole step — while an aligned
-    4-column fold of the same data is free (benchmarks/sym_profile.py).
-    Inside a Pallas kernel the same column slices are cheap lane shuffles.
-    """
-    s = a[:, 9] + a[:, 10] + a[:, 11]
-    ax = a[:, 0] + a[:, 1] + a[:, 2] + a[:, 12] - pos_mass[:, 0] * s
-    ay = a[:, 3] + a[:, 4] + a[:, 5] + a[:, 13] - pos_mass[:, 1] * s
-    az = a[:, 6] + a[:, 7] + a[:, 8] + a[:, 14] - pos_mass[:, 2] * s
-    return jnp.stack([ax, ay, az, jnp.zeros_like(ax)], axis=1)
-
-
-def _combine16_kernel(acc_ref, pm_ref, out_ref):
-    """Pallas elementwise epilogue: same algebra and op order as
-    :func:`_combine16`, with the column shuffles done in VMEM."""
-    a = acc_ref[...]
-    pm = pm_ref[...]
-    s = a[:, 9:10] + a[:, 10:11] + a[:, 11:12]
-    ax = a[:, 0:1] + a[:, 1:2] + a[:, 2:3] + a[:, 12:13] - pm[:, 0:1] * s
-    ay = a[:, 3:4] + a[:, 4:5] + a[:, 5:6] + a[:, 13:14] - pm[:, 1:2] * s
-    az = a[:, 6:7] + a[:, 7:8] + a[:, 8:9] + a[:, 14:15] - pm[:, 2:3] * s
-    out_ref[...] = jnp.concatenate([ax, ay, az, jnp.zeros_like(s)], axis=1)
-
-
-def combine16_pallas(
-    acc16: jax.Array,
-    pos_mass: jax.Array,
-    *,
-    block: int = DEFAULT_BLOCK_TARGET,
-    interpret: bool = False,
-) -> jax.Array:
-    """(N,16) limb accumulator + (N,4) pos_mass -> (N,4) accelerations, as
-    one O(N) Pallas pass (see :func:`_combine16` for why not plain XLA)."""
-    n = acc16.shape[0]
-    # Shrink to a divisor when block doesn't divide n: a single whole-array
-    # block would blow the VMEM limit for large unaligned n (ADVICE r2).
-    b = divisor_block(n, block)
-    nt = n // b
-    return pl.pallas_call(
-        _combine16_kernel,
-        grid=(nt,),
-        in_specs=[
-            pl.BlockSpec((b, 16), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((b, 4), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((b, 4), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n, 4), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",), vmem_limit_bytes=_VMEM_LIMIT
-        ),
-        interpret=interpret,
-    )(acc16, pos_mass)
-
-
-def sym_combine(
-    out_tgt: jax.Array, out_src: jax.Array, pos_mass: jax.Array
-) -> jax.Array:
-    """(N,16) + (nt,16,B) limb accumulators -> (N,4) accelerations (the
-    algebra is linear, so the sides combine before the un-centering
-    epilogue)."""
-    n = pos_mass.shape[0]
-    a = out_tgt + jnp.transpose(out_src, (0, 2, 1)).reshape(n, 16)
-    return _combine16(a, pos_mass)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("eps2", "block", "interpret", "raw", "center"),
-)
-def accel_sym_pallas(
-    pos_mass: jax.Array,
-    G: jax.Array | float,
-    *,
-    eps2: float = 1e-4,
-    block: int = DEFAULT_BLOCK_TARGET,
-    interpret: bool = False,
-    raw: bool = False,
-    center: bool = True,
-) -> jax.Array:
-    """All-pairs accelerations via the symmetric (Newton-3) schedule.
-
-    Compiles as up to three CONDITION-FREE pallas calls — diagonal blocks
-    (masked dot), the always-active middle hops ``k = 1..ceil(nt/2)-1``,
-    and (even nt) the shared half-hop whose grid covers exactly the
-    computing half — because ``pl.when``-predicated dots pipeline poorly
-    on Mosaic (one round-robin grid with predicated branches measured 311
-    vs this form's 401 G-int/s at N=256k).  Single-chip full-square only
-    (targets are the sources); the multi-chip ring keeps the rectangular
-    :func:`accel_pallas`.  Requires ``N % block == 0`` (any block count,
-    odd included).  Returns ``(N, 4)``.
-    """
-    if eps2 <= 0:
-        raise ValueError("eps2 must be > 0 (softening also guards the self-pair)")
-    n = pos_mass.shape[0]
-    if n % block != 0:
-        raise ValueError(f"sym: N={n} must be divisible by block={block}")
-    nt = n // block
-    half = nt // 2
-    cparams = pltpu.CompilerParams(
-        dimension_semantics=("arbitrary", "arbitrary"),
-        vmem_limit_bytes=_VMEM_LIMIT,
-    )
-
-    # The aliased wrap-extension is a TPU DMA optimization; interpret
-    # mode keeps the plain XLA concats (input_output_aliases through
-    # the interpreter segfaulted XLA:CPU in long test processes).
-    pre_ext = center and nt > 1 and not interpret
-    if center:
-        # ---- call A (fused): diagonal blocks + in-kernel operand build —
-        # the limbs/centroids/transposed sources come out of the same
-        # kernel that computes the masked diagonal dot, eliminating the
-        # XLA-side prep chain (~2 ms at the 40k reference default).
-        acc16, s16, cent, srcT = sym_diag_prep_pallas(
-            pos_mass, G, eps2=float(eps2), block=block, interpret=interpret,
-            ext_blocks=(half + 1) if pre_ext else 0,
-        )
-    else:
-        # Ablation path (uncentered operands): XLA prep + plain diag call.
-        srcT = src_transposed(pos_mass, G)
-        s16, cent = sym_operands(pos_mass, G, block, center=False)
-        mask = 1.0 - jnp.eye(block, dtype=jnp.float32)  # VMEM-resident
-        acc16 = pl.pallas_call(
-            functools.partial(_sym_diag_kernel, eps2=float(eps2), b=block),
-            grid=(nt,),
-            in_specs=[
-                pl.BlockSpec((block, block), lambda i: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((4, block), lambda i: (0, i), memory_space=pltpu.VMEM),
-                pl.BlockSpec((block, 4), lambda i: (i, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((block, 16), lambda i: (i, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-            ],
-            out_specs=pl.BlockSpec((block, 16), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct((n, 16), jnp.float32),
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("arbitrary",), vmem_limit_bytes=_VMEM_LIMIT
-            ),
-            cost_estimate=_cost(n, block, nt),
-            interpret=interpret,
-        )(mask, srcT, pos_mass, s16, cent)
-
-    if nt > 1:
-        t_b, s_b, t_c, s_c = _sym_hops_raw(
-            pos_mass, srcT, s16, cent,
-            eps2=float(eps2), block=block, interpret=interpret,
-            pre_extended=pre_ext,
-        )
-        if t_b is not None:
-            acc16 = acc16 + t_b + jnp.transpose(s_b, (0, 2, 1)).reshape(n, 16)
-        if t_c is not None:
-            acc16 = acc16.at[: half * block].add(t_c)
-            acc16 = acc16 + jnp.transpose(s_c, (0, 2, 1)).reshape(n, 16)
-
-    if raw:  # debug: the raw limb accumulator
-        return acc16
-    return combine16_pallas(acc16, pos_mass, block=block, interpret=interpret)
-
-
-def _sym_step_epilogue_kernel(
-    *refs, b, half, n_real, has_b, has_c
-):
-    """Fused sym-step epilogue: raw limb accumulators -> next state, one
-    O(N) pass.
-
-    Replaces the XLA glue between the Newton-3 kernels and the integrator
-    — accumulator adds, two ``(nt, 16, B) -> (N, 16)`` transposes, the
-    :func:`combine16_pallas` un-centering fold, and the XLA Verlet
-    elementwise chain (~180 MB of HBM round trips as 4+ separate passes)
-    — with ONE pass that reads each accumulator once and writes the new
-    state (``nbody3d.js:274-290`` semantics, valid-masked padding).
-
-    The reverse accumulators arrive in their native ``(16, B)`` layout;
-    they are reduced to 4 components FIRST (lane-wise row adds) and only
-    then transposed — a ``(4, b)`` transpose expressed as an exact
-    identity matmul on the MXU, because a direct in-kernel
-    ``jnp.transpose`` relayout faulted the TPU worker (see
-    :func:`_sym_diag_prep_kernel`) and a 16-row transpose would move 4x
-    the data."""
-    it = iter(refs)
-    dt_ref = next(it)
-    acc_a_ref = next(it)
-    tb_ref = next(it) if has_b else None
-    sb_ref = next(it) if has_b else None
-    tc_ref = next(it) if has_c else None
-    sc_ref = next(it) if has_c else None
-    pm_ref = next(it)
-    vel_ref = next(it)
-    aold_ref = next(it)
-    pnew_ref = next(it)
-    vnew_ref = next(it)
-    anew_ref = next(it)
-
-    i = pl.program_id(0)
-    row = acc_a_ref[...]
-    tr = None
-    if has_b:
-        row = row + tb_ref[...]
-        tr = sb_ref[0]
-    if has_c:
-        # Call C wrote forward partials only for the first half of the
-        # rows; blocks i >= half fetch a dummy block (clamped index map)
-        # and multiply it away — condition-free.
-        row = row + tc_ref[...] * jnp.where(i < half, 1.0, 0.0).astype(jnp.float32)
-        tr = sc_ref[0] if tr is None else tr + sc_ref[0]
-
-    # Row-layout part: combine16 algebra (cheap VMEM lane shuffles).
-    s = row[:, 9:10] + row[:, 10:11] + row[:, 11:12]
-    ax = row[:, 0:1] + row[:, 1:2] + row[:, 2:3] + row[:, 12:13]
-    ay = row[:, 3:4] + row[:, 4:5] + row[:, 5:6] + row[:, 13:14]
-    az = row[:, 6:7] + row[:, 7:8] + row[:, 8:9] + row[:, 14:15]
-    if tr is not None:
-        # Transposed part: same algebra on rows, transpose AFTER reduction.
-        ts = tr[9:10, :] + tr[10:11, :] + tr[11:12, :]
-        tx = tr[0:1, :] + tr[1:2, :] + tr[2:3, :] + tr[12:13, :]
-        ty = tr[3:4, :] + tr[4:5, :] + tr[5:6, :] + tr[13:14, :]
-        tz = tr[6:7, :] + tr[7:8, :] + tr[8:9, :] + tr[14:15, :]
-        t4 = jnp.concatenate([tx, ty, tz, ts], axis=0)  # (4, b)
-        eye4 = jnp.eye(4, dtype=jnp.float32)
-        t4t = lax.dot_general(  # exact f32 transpose via identity matmul
-            t4, eye4,
-            dimension_numbers=(((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            # HIGHEST, or the operands round to bf16 (default matmul
-            # precision) — 2e-4 measured on the reduced partials.
-            precision=lax.Precision.HIGHEST,
-        )  # (b, 4)
-        ax = ax + t4t[:, 0:1]
-        ay = ay + t4t[:, 1:2]
-        az = az + t4t[:, 2:3]
-        s = s + t4t[:, 3:4]
-    pm = pm_ref[...]
-    ax = ax - pm[:, 0:1] * s
-    ay = ay - pm[:, 1:2] * s
-    az = az - pm[:, 2:3] * s
-    a_new = jnp.concatenate([ax, ay, az, jnp.zeros_like(ax)], axis=1)
-
-    valid = None
-    if n_real is not None:
-        ridx = lax.broadcasted_iota(jnp.int32, (b, 1), 0) + i * b
-        valid = ridx < n_real
-        a_new = jnp.where(valid, a_new, 0.0)
-
-    # Frame-shifted velocity Verlet (nbody3d.js:280-283 op order; the w
-    # lanes ride untouched: vel.w == accel.w == 0).
-    dt = dt_ref[0]
-    half_dt = dt * 0.5
-    vel = vel_ref[...]
-    aold = aold_ref[...]
-    v_new = vel + (aold + a_new) * half_dt
-    p_new = pm + (v_new + a_new * half_dt) * dt
-    if valid is not None:
-        p_new = jnp.where(valid, p_new, pm)
-        v_new = jnp.where(valid, v_new, vel)
-    pnew_ref[...] = p_new
-    vnew_ref[...] = v_new
-    anew_ref[...] = a_new
-
-
-@functools.partial(
-    jax.jit, static_argnames=("eps2", "block", "n_real", "interpret")
-)
-def sym_verlet_step_pallas(
-    pos_mass: jax.Array,
-    vel: jax.Array,
-    accel_old: jax.Array,
-    dt: jax.Array | float,
-    G: jax.Array | float,
-    *,
-    eps2: float,
-    block: int,
-    n_real: int | None = None,
-    interpret: bool = False,
-) -> tuple[jax.Array, jax.Array, jax.Array]:
-    """Fully fused single-chip sym step: Newton-3 force + Verlet update
-    with zero XLA glue between kernels.
-
-    Pipeline: the fused diagonal+prep call (:func:`sym_diag_prep_pallas`),
-    the raw hop calls (:func:`_sym_hops_raw`), then ONE O(N) epilogue
-    pass (:func:`_sym_step_epilogue_kernel`) that folds the accumulator
-    adds/transposes, the un-centering limb combine, and the frame-shifted
-    Verlet update (``nbody3d.js:274-290``).  This is the TPU answer to
-    the reference's fused force+integrate dispatch: fusing integration
-    into the O(N^2) kernel itself measured 2x slower (revisited output
-    blocks — docs/DESIGN.md), but fusing it into the O(N) epilogue that
-    must touch the data anyway is free.
-
-    Returns ``(new_pos_mass, new_vel, new_accel)``; rows ``>= n_real``
-    are frozen (the ``index < nBodies`` guard, ``nbody3d.js:257,265``).
-    Requires ``nt >= 2`` (callers fall back to the unfused path for a
-    single block).  Not differentiable directly — ``ops/step.py`` wraps
-    it in a ``jax.custom_vjp`` whose backward reuses the hand-written
-    force VJP.
-    """
-    n = pos_mass.shape[0]
-    if n % block != 0:
-        raise ValueError(f"sym step: N={n} must be divisible by block={block}")
-    nt = n // block
-    half = nt // 2
-    if nt < 2:
-        raise ValueError("sym_verlet_step_pallas needs nt >= 2 blocks")
-
-    # Aliased wrap-extension on TPU only — see the note in
-    # accel_sym_pallas (interpret + input_output_aliases segfaulted
-    # XLA:CPU in long test processes).
-    pre_ext = not interpret
-    acc16, s16, cent, srcT = sym_diag_prep_pallas(
-        pos_mass, G, eps2=float(eps2), block=block, interpret=interpret,
-        ext_blocks=(half + 1) if pre_ext else 0,
-    )
-    t_b, s_b, t_c, s_c = _sym_hops_raw(
-        pos_mass, srcT, s16, cent,
-        eps2=float(eps2), block=block, interpret=interpret,
-        pre_extended=pre_ext,
-    )
-    return _sym_epilogue_call(
-        acc16, t_b, s_b, t_c, s_c, pos_mass, vel, accel_old, dt,
-        block=block, n_real=n_real, interpret=interpret,
-    )
-
-
-def _sym_epilogue_call(
-    acc16: jax.Array,
-    t_b: jax.Array | None,
-    s_b: jax.Array | None,
-    t_c: jax.Array | None,
-    s_c: jax.Array | None,
-    pos_mass: jax.Array,
-    vel: jax.Array,
-    accel_old: jax.Array,
-    dt: jax.Array | float,
-    *,
-    block: int,
-    n_real: int | None,
-    interpret: bool,
-) -> tuple[jax.Array, jax.Array, jax.Array]:
-    """Dispatch the fused epilogue pass (see
-    :func:`_sym_step_epilogue_kernel`) over the raw sym accumulators."""
-    n = pos_mass.shape[0]
-    nt = n // block
-    half = nt // 2
-    has_b = t_b is not None
-    has_c = t_c is not None
-
-    dt_arr = jnp.reshape(jnp.asarray(dt, jnp.float32), (1,))
-    inputs: list[jax.Array] = [dt_arr, acc16]
-    in_specs = [
-        pl.BlockSpec(memory_space=pltpu.SMEM),
-        pl.BlockSpec((block, 16), lambda i: (i, 0), memory_space=pltpu.VMEM),
-    ]
-    if has_b:
-        inputs += [t_b, s_b]
-        in_specs += [
-            pl.BlockSpec((block, 16), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 16, block), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-        ]
-    if has_c:
-        inputs += [t_c, s_c]
-        in_specs += [
-            pl.BlockSpec(
-                (block, 16),
-                lambda i: (jnp.minimum(i, half - 1), 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec((1, 16, block), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-        ]
-    inputs += [pos_mass, vel, accel_old]
-    state_spec = pl.BlockSpec((block, 4), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    in_specs += [state_spec, state_spec, state_spec]
-
-    kernel = functools.partial(
-        _sym_step_epilogue_kernel,
-        b=block,
-        half=half,
-        n_real=(None if n_real is None or n_real >= n else int(n_real)),
-        has_b=has_b,
-        has_c=has_c,
-    )
-    p_new, v_new, a_new = pl.pallas_call(
-        kernel,
-        grid=(nt,),
-        in_specs=in_specs,
-        out_specs=[state_spec, state_spec, state_spec],
-        out_shape=[jax.ShapeDtypeStruct((n, 4), jnp.float32)] * 3,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",), vmem_limit_bytes=_VMEM_LIMIT
-        ),
-        interpret=interpret,
-    )(*inputs)
-    return p_new, v_new, a_new
-
-
-def _pair_sym_kernel(
-    srcT_ref, tgt_ref, s16s_ref, s16t_ref, cents_ref, centt_ref,
-    out_tgt_ref, out_src_ref, *, eps2, bt, bs,
-):
-    """Rectangular Newton-3 pair kernel (two DISJOINT body sets, e.g. two
-    ring shards): one weight chain per block pair, forward dot for the
-    targets, TN reverse dot for the sources — the multi-chip analog of
-    :func:`_sym_kernel` without the round-robin (every (i, j) block pair
-    is visited exactly once by the full grid).  No self-pairs by
-    precondition (same-shard interactions take :func:`accel_sym_pallas`).
-    ``out_src`` is the (ns, 16, bs) VMEM-resident reverse accumulator."""
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-
-    @pl.when(jnp.logical_and(i == 0, j == 0))
-    def _():
-        out_src_ref[...] = jnp.zeros(out_src_ref.shape, out_src_ref.dtype)
-
-    @pl.when(j == 0)
-    def _():
-        out_tgt_ref[...] = jnp.zeros(out_tgt_ref.shape, out_tgt_ref.dtype)
-
-    tgt = tgt_ref[...]
-    _, _, _, d2 = _pair_diffs(tgt, srcT_ref, eps2)
-    inv3 = lax.rsqrt(d2 * (d2 * d2))
-
-    part = jnp.dot(inv3, s16s_ref[...], preferred_element_type=jnp.float32)
-    wsum = part[:, 9:10] + part[:, 10:11] + part[:, 11:12]
-    cjx = cents_ref[j, 0]
-    cjy = cents_ref[j, 1]
-    cjz = cents_ref[j, 2]
-    cw = jnp.concatenate(
-        [wsum * cjx, wsum * cjy, wsum * cjz, jnp.zeros_like(wsum)], axis=1
-    )
-    out_tgt_ref[...] += jnp.concatenate([part[:, :12], cw], axis=1)
-
-    part_r = lax.dot_general(
-        s16t_ref[...],
-        inv3,
-        dimension_numbers=(((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )  # (16, bs)
-    wsum_r = part_r[9:10, :] + part_r[10:11, :] + part_r[11:12, :]
-    cix = centt_ref[i, 0]
-    ciy = centt_ref[i, 1]
-    ciz = centt_ref[i, 2]
-    cw_r = jnp.concatenate(
-        [wsum_r * cix, wsum_r * ciy, wsum_r * ciz, jnp.zeros_like(wsum_r)],
-        axis=0,
-    )
-    out_src_ref[j] = out_src_ref[j] + jnp.concatenate([part_r[:12, :], cw_r], axis=0)
-
-
-@functools.partial(jax.jit, static_argnames=("eps2", "block", "interpret"))
-def accel_pair_sym_pallas(
-    tgt_pos_mass: jax.Array,
-    src_pos_mass: jax.Array,
-    G: jax.Array | float,
-    *,
-    eps2: float = 1e-4,
-    block: int = DEFAULT_BLOCK_TARGET,
-    interpret: bool = False,
-    tgt_pack: tuple[jax.Array, jax.Array] | None = None,
-    src_pack: tuple[jax.Array, jax.Array] | None = None,
-) -> tuple[jax.Array, jax.Array]:
-    """Forces between two DISJOINT body sets, both directions from one
-    weight-chain evaluation (Newton's third law): returns
-    ``(acc_on_targets (Nt,4), acc_on_sources (Ns,4))``.
-
-    This is the per-hop kernel of the Newton-3 ring (parallel/sharded.py
-    strategy "ringsym"): each unordered shard pair is computed by ONE
-    chip; the source-side partial is shipped back to its owner on the
-    return carry.  Shared bf16 weights make the ij/ji antisymmetry exact,
-    like the single-chip sym mode.  Self-pairs are a precondition
-    violation (use :func:`accel_sym_pallas` for a shard against itself).
-    """
-    if eps2 <= 0:
-        raise ValueError("eps2 must be > 0 (softening also guards the self-pair)")
-    n_t, n_s = tgt_pos_mass.shape[0], src_pos_mass.shape[0]
-    if n_t % block != 0 or n_s % block != 0:
-        raise ValueError(
-            f"pair_sym: Nt={n_t}, Ns={n_s} must be divisible by block={block}"
-        )
-    nt, ns = n_t // block, n_s // block
-    srcT = src_transposed(src_pos_mass, G)
-    # Operand packs are hoistable: the ringsym loop reuses the resident
-    # shard's target pack across all hops, and the macro tiler reuses each
-    # chunk's pack across its pairings.
-    s16s, cents = src_pack if src_pack is not None else sym_operands(
-        src_pos_mass, G, block
-    )
-    s16t, centt = tgt_pack if tgt_pack is not None else sym_operands(
-        tgt_pos_mass, G, block
-    )
-    kernel = functools.partial(_pair_sym_kernel, eps2=float(eps2), bt=block, bs=block)
-    out_tgt, out_src = pl.pallas_call(
-        kernel,
-        grid=(nt, ns),
-        in_specs=[
-            pl.BlockSpec((4, block), lambda i, j: (0, j), memory_space=pltpu.VMEM),
-            pl.BlockSpec((block, 4), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((block, 16), lambda i, j: (j, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((block, 16), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # source centroids
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # target centroids
-        ],
-        out_specs=[
-            pl.BlockSpec((block, 16), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((ns, 16, block), lambda i, j: (0, 0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((n_t, 16), jnp.float32),
-            jax.ShapeDtypeStruct((ns, 16, block), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary"),
-            vmem_limit_bytes=_VMEM_LIMIT,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=32 * n_t * n_s,
-            bytes_accessed=(nt * ns + nt + ns) * block * 16 * 4,
-            transcendentals=n_t * n_s,
-        ),
-        interpret=interpret,
-    )(srcT, tgt_pos_mass, s16s, s16t, cents, centt)
-    acc_t = combine16_pallas(out_tgt, tgt_pos_mass, block=block, interpret=interpret)
-    acc_s = combine16_pallas(
-        jnp.transpose(out_src, (0, 2, 1)).reshape(n_s, 16),
-        src_pos_mass,
-        block=block,
-        interpret=interpret,
-    )
-    return acc_t, acc_s
+        lo = pl.program_id(1) * per
+        hi = jnp.minimum(lo + per, tiles)
+    ax, ay, az = lax.fori_loop(lo, hi, body, (zero, zero, zero))
+    out_ref[0, :] = jnp.sum(ax, axis=1)
+    out_ref[1, :] = jnp.sum(ay, axis=1)
+    out_ref[2, :] = jnp.sum(az, axis=1)
+    out_ref[3, :] = jnp.zeros_like(tx)
+
+
+def _round_up(n: int, b: int) -> int:
+    return -(-n // b) * b
+
+
+def source_split(n_target_blocks: int, n_source_tiles: int,
+                 min_programs: int = MIN_PROGRAMS) -> tuple[int, int]:
+    """``(split, tiles_per_split)``: how many grid programs share each
+    target block's source loop so the grid holds about ``min_programs``
+    programs, with no program left empty."""
+    split = max(1, min(n_source_tiles, -(-min_programs // n_target_blocks)))
+    per = -(-n_source_tiles // split)
+    return -(-n_source_tiles // per), per
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "eps2", "block_target", "block_source", "mode", "interpret",
-        "static_diag",
+        "eps2", "interpret", "block_target", "block_source", "num_warps",
+        "num_stages", "min_programs",
     ),
 )
 def accel_pallas(
     tgt_pos_mass: jax.Array,
     srcT: jax.Array,
-    src10: jax.Array | None = None,
-    diag_offset: jax.Array | int | None = None,
     *,
     eps2: float = 1e-4,
-    block_target: int = DEFAULT_BLOCK_TARGET,
-    block_source: int = DEFAULT_BLOCK_SOURCE,
-    mode: str = "exact",
     interpret: bool = False,
-    diag_lo: jax.Array | int = 0,
-    diag_hi: jax.Array | int = NO_DIAG,
-    static_diag: tuple[int, int, int] | None = (0, 0, NO_DIAG),
+    block_target: int = BLOCK_T,
+    block_source: int = BLOCK_S,
+    num_warps: int = NUM_WARPS,
+    num_stages: int = NUM_STAGES,
+    min_programs: int = MIN_PROGRAMS,
 ) -> jax.Array:
-    """Partial accelerations of local targets against one source shard.
-
-    ``srcT`` is ``(4, N_src)`` rows ``[x, y, z, G*m]`` (:func:`src_transposed`);
-    fast mode additionally needs ``src10 = src_limbs(...)``.
-
-    Self-pair spec (fast mode only — exact mode needs no mask because the
-    self separation is exactly zero, while the fast MXU path's
-    softening-floor self *weight* corrupts the f32 accumulator for heavy
-    bodies, see :func:`_accum_fast`): a pair is a self-pair iff
-    ``source_col == target_row + offset`` AND the target row lies in
-    ``[lo, hi)``.
-
-    - ``static_diag=(offset, lo, hi)`` (STATIC python ints — the default
-      ``(0, 0, NO_DIAG)`` is the single-chip targets==sources case):
-      compiles condition-free kernels, splitting the diagonal into its own
-      tiny pallas call when one straddles the grid.  Use
-      ``(NO_DIAG, 0, NO_DIAG)`` for disjoint target/source sets (ring
-      hops k > 0).  This is the full-throughput path; the conditional
-      masked/unmasked dot pair costs ~30% (measured, docs/DESIGN.md).
-    - ``static_diag=None`` + traced ``diag_offset``/``diag_lo``/``diag_hi``:
-      for shardings where the diagonal position depends on
-      ``lax.axis_index`` (2-D grid, gather) and is unknown at compile time.
-
-    Returns ``(N_tgt, 4)`` with zero w lane.
-    """
+    """Accelerations of targets ``(N_t, 4)`` against the sources ``srcT``
+    ``(4, N_s)`` rows ``[x, y, z, G*m]`` (:func:`src_transposed`).
+    Returns ``(N_t, 4)`` with a zero w lane.  Any counts work: the wrapper
+    pads targets and sources to whole blocks with zero-mass bodies.
+    ``interpret=True`` runs the kernel in the Pallas interpreter (CPU
+    tests); the block and launch arguments exist for the tuning sweep."""
     if eps2 <= 0:
         raise ValueError("eps2 must be > 0 (softening also guards the self-pair)")
-    if mode not in MODES:
-        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    if mode == "sym":
-        raise ValueError("mode='sym' is a full-square schedule; use accel_sym_pallas")
-    n_t = tgt_pos_mass.shape[0]
-    n_s = srcT.shape[1]
     bt, bs = block_target, block_source
-    if n_t % bt != 0:
-        raise ValueError(f"target count {n_t} not divisible by block_target={bt}")
-    if n_s % bs != 0:
-        raise ValueError(f"source count {n_s} not divisible by block_source={bs}")
-    nt = n_t // bt
-
-    blk_t = pl.BlockSpec((bt, 4), lambda i, j: (i, 0), memory_space=pltpu.VMEM)
-    blk_out = pl.BlockSpec((bt, 4), lambda i, j: (i, 0), memory_space=pltpu.VMEM)
-    if mode == "exact":
-        kernel = functools.partial(_force_kernel_exact, eps2=float(eps2), bt=bt, bs=bs)
-        return pl.pallas_call(
-            kernel,
-            grid=(nt, n_s // bs),
-            in_specs=[
-                pl.BlockSpec((4, bs), lambda i, j: (0, j), memory_space=pltpu.VMEM),
-                blk_t,
-            ],
-            out_specs=blk_out,
-            out_shape=jax.ShapeDtypeStruct((n_t, 4), jnp.float32),
-            compiler_params=_compiler_params(),
-            cost_estimate=_cost(n_t, n_s, nt),
-            interpret=interpret,
-        )(srcT, tgt_pos_mass)
-    if src10 is None:
-        raise ValueError("fast mode requires src10 = src_limbs(pos_mass, G)")
-    ns = n_s // bs
-    if static_diag is not None and diag_offset is not None:
-        raise ValueError(
-            "pass EITHER static_diag (compile-time diagonal, full-speed "
-            "kernels) OR traced diag_offset/diag_lo/diag_hi with "
-            "static_diag=None — not both"
-        )
-
-    def nomask_call(grid_j, src_idx_map):
-        kernel = functools.partial(
-            _force_kernel_fast_nomask, eps2=float(eps2), bt=bt, bs=bs
-        )
-        return pl.pallas_call(
-            kernel,
-            grid=(nt, grid_j),
-            in_specs=[
-                pl.BlockSpec((4, bs), lambda i, j: (0, src_idx_map(i, j)), memory_space=pltpu.VMEM),
-                pl.BlockSpec((bs, 16), lambda i, j: (src_idx_map(i, j), 0), memory_space=pltpu.VMEM),
-                blk_t,
-            ],
-            out_specs=blk_out,
-            out_shape=jax.ShapeDtypeStruct((n_t, 4), jnp.float32),
-            scratch_shapes=[pltpu.VMEM((bt, 16), jnp.float32)],
-            compiler_params=_compiler_params(),
-            cost_estimate=_cost(n_t, n_s, nt),
-            interpret=interpret,
-        )(srcT, src10, tgt_pos_mass)
-
-    if static_diag is not None:
-        # Diagonal position known at compile time: condition-free kernels
-        # (the conditional masked/unmasked dot pair costs ~30% throughput).
-        s_off, s_lo, s_hi = static_diag
-        t_lo, t_hi = max(0, s_lo), min(n_t, s_hi)
-        no_self = (
-            t_lo >= t_hi  # empty target range
-            or t_hi + s_off <= 0  # diagonal left of the source cols
-            or t_lo + s_off >= n_s  # ... or right of them
-        )
-        if no_self:
-            return nomask_call(ns, lambda i, j: j)
-        # Split needs every target block's diagonal inside ONE in-range
-        # source block: block-aligned offset AND bs a multiple of bt
-        # (otherwise a target block's diagonal straddles two source blocks
-        # and the single-jd diag call would leave self-pairs unmasked).
-        splittable = (
-            s_off % bs == 0
-            and bt <= bs
-            and bs % bt == 0
-            and s_off >= 0
-            and s_off + n_t <= n_s
-        )
-        if splittable:
-            # main call skips each row's single diagonal-straddling source
-            # block via grid remap; the diag call covers it with one
-            # always-masked dot.  The fast epilogue is linear in the
-            # accumulator, so the two (N, 4) outputs add exactly.
-            off = s_off
-            diag_kernel = functools.partial(
-                _force_kernel_fast_diag,
-                eps2=float(eps2), bt=bt, bs=bs,
-                off=off, lo=t_lo, hi=t_hi,
-            )
-            diag_part = pl.pallas_call(
-                diag_kernel,
-                grid=(nt,),
-                in_specs=[
-                    pl.BlockSpec((4, bs), lambda i: (0, (i * bt + off) // bs), memory_space=pltpu.VMEM),
-                    pl.BlockSpec((bs, 16), lambda i: ((i * bt + off) // bs, 0), memory_space=pltpu.VMEM),
-                    pl.BlockSpec((bt, 4), lambda i: (i, 0), memory_space=pltpu.VMEM),
-                ],
-                out_specs=pl.BlockSpec((bt, 4), lambda i: (i, 0), memory_space=pltpu.VMEM),
-                out_shape=jax.ShapeDtypeStruct((n_t, 4), jnp.float32),
-                compiler_params=pltpu.CompilerParams(
-                    dimension_semantics=("arbitrary",),
-                    vmem_limit_bytes=_VMEM_LIMIT,
-                ),
-                cost_estimate=_cost(n_t, bs, nt),
-                interpret=interpret,
-            )(srcT, src10, tgt_pos_mass)
-            if ns == 1:
-                return diag_part  # the diagonal block was everything
-            jd = lambda i: (i * bt + off) // bs  # noqa: E731
-            main = nomask_call(
-                ns - 1, lambda i, j: j + jnp.where(j >= jd(i), 1, 0)
-            )
-            return main + diag_part
-        # static but unaligned diagonal -> traced conditional kernel
-        diag_offset, diag_lo, diag_hi = s_off, s_lo, s_hi
-
-    if diag_offset is None:
-        raise ValueError("static_diag=None requires an explicit diag_offset")
-    diag = jnp.stack(
-        [
-            jnp.asarray(diag_offset, jnp.int32),
-            jnp.asarray(diag_lo, jnp.int32),
-            jnp.asarray(diag_hi, jnp.int32),
-        ]
+    n_t, n_s = tgt_pos_mass.shape[0], srcT.shape[1]
+    nt_pad, ns_pad = _round_up(n_t, bt), _round_up(n_s, bs)
+    tgt = jnp.pad(
+        jnp.asarray(tgt_pos_mass, jnp.float32).T, ((0, 0), (0, nt_pad - n_t))
     )
-    kernel = functools.partial(_force_kernel_fast, eps2=float(eps2), bt=bt, bs=bs)
-    return pl.pallas_call(
-        kernel,
-        grid=(nt, ns),
+    src = jnp.pad(jnp.asarray(srcT, jnp.float32), ((0, 0), (0, ns_pad - n_s)))
+    n_blocks, tiles = nt_pad // bt, ns_pad // bs
+    split, per = source_split(n_blocks, tiles, min_programs)
+    out = pl.pallas_call(
+        functools.partial(
+            _kernel, eps2=float(eps2), bs=bs, tiles=tiles, per=per
+        ),
+        grid=(n_blocks, split),
         in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # diag_offset, lo, hi
-            pl.BlockSpec((4, bs), lambda i, j: (0, j), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bs, 16), lambda i, j: (j, 0), memory_space=pltpu.VMEM),
-            blk_t,
+            pl.BlockSpec((4, bt), lambda i, k: (0, i)),
+            pl.BlockSpec((4, ns_pad), lambda i, k: (0, 0)),
         ],
-        out_specs=blk_out,
-        out_shape=jax.ShapeDtypeStruct((n_t, 4), jnp.float32),
-        scratch_shapes=[pltpu.VMEM((bt, 16), jnp.float32)],
-        compiler_params=_compiler_params(),
-        cost_estimate=_cost(n_t, n_s, nt),
+        out_specs=pl.BlockSpec((4, bt), lambda i, k: (k, i)),
+        out_shape=jax.ShapeDtypeStruct((4 * split, nt_pad), jnp.float32),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=num_warps, num_stages=num_stages
+        ),
         interpret=interpret,
-    )(diag, srcT, src10, tgt_pos_mass)
+        name="direct_force",
+    )(tgt, src)
+    return out.reshape(split, 4, nt_pad).sum(axis=0)[:, :n_t].T
+
+
+@functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3))
+def _direct_accel(pos_mass, G, eps2, interpret):
+    return accel_pallas(
+        pos_mass, src_transposed(pos_mass, G), eps2=eps2, interpret=interpret
+    )
+
+
+def _direct_accel_fwd(pos_mass, G, eps2, interpret):
+    return _direct_accel(pos_mass, G, eps2, interpret), (pos_mass, G)
+
+
+def _direct_accel_bwd(eps2, interpret, res, abar):
+    pos_mass, G = res
+    return accel_direct_vjp(pos_mass, G, abar, eps2=eps2)
+
+
+_direct_accel.defvjp(_direct_accel_fwd, _direct_accel_bwd)
+
+
+def direct_accel(
+    pos_mass: jax.Array, G, *, eps2: float = 1e-4, interpret: bool = False
+) -> jax.Array:
+    """Differentiable single-set direct sum ``(N, 4) -> (N, 4)``: the
+    kernel forward, the chunked reference VJP backward."""
+    return _direct_accel(
+        jnp.asarray(pos_mass, jnp.float32), jnp.float32(G), float(eps2),
+        bool(interpret),
+    )

@@ -1,9 +1,9 @@
 """Particle-mesh (PM) gravity: an O(N + M³ log M) far-field solver.
 
 The reference implements exactly one force algorithm — brute-force
-all-pairs (``nbody3d.js:218-294``).  The direct Pallas kernels reproduce it
-at ~400 G-int/s/chip; this module goes *beyond* the reference: a
-TPU-idiomatic PM solver whose cost scales near-linearly with N, for large
+all-pairs (``nbody3d.js:218-294``), which the direct kernel reproduces;
+this module goes *beyond* the reference: a PM solver whose cost scales
+near-linearly with N, for large
 diffuse systems where grid-scale force smoothing is acceptable.  It is an
 approximation — pair resolution is limited to a few cell widths — so it is
 an opt-in ``method="pm"`` next to the exact ``method="direct"`` family,
@@ -14,8 +14,8 @@ Pipeline (one jitted function, static shapes, dynamic box):
 1. **Bounding box** → cubic cell size ``h``, recomputed every step from the
    real bodies (traced values — no recompile as the system expands).
 2. **Cloud-in-cell (CIC) deposit** of mass onto an ``(M, M, M)`` grid.
-   TPU-first: XLA scatter is serial on TPU, so the 8·N ``(cell, weight)``
-   contributions are sorted by cell id (``lax.sort``), reduced by a
+   Scatter-free: the 8·N ``(cell, weight)`` contributions are sorted by
+   cell id (``lax.sort``), reduced by a
    segmented scan (log₂(8N) vectorized passes — precision-safe, unlike a
    global cumsum whose running magnitude absorbs small weights), and read
    out with one boundary gather per cell.  Deterministic by construction.
@@ -25,7 +25,7 @@ Pipeline (one jitted function, static shapes, dynamic box):
    on the padded grid — the same softening law as the direct kernel
    (``nbody3d.js:234``), so PM matches direct exactly in the far field and
    rolls off identically near ``eps``.  Two ``rfftn`` + one ``irfftn`` of a
-   real ``(2M)³`` grid per step, all on-chip.
+   real ``(2M)³`` grid per step, all on the device.
 4. **Central-difference gradient** → three force grids (odd stencil ⇒ no
    grid self-force with a matching deposit/gather pair).
 5. **Trilinear (CIC) force gather** at particle positions — the same
@@ -46,7 +46,6 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-from nbody3d_tpu.ops.blocks import divisor_block
 
 # Particles are kept this many cells clear of the grid edge so the CIC
 # stencil and the central-difference gradient never touch boundary cells
@@ -121,7 +120,7 @@ def _segment_sum_sorted(ids: jax.Array, w: jax.Array, ncell: int) -> jax.Array:
     # hi[c] == hi[c-1] and a zero read via the (hi[c] > lo[c]) mask.
     cells = jnp.arange(ncell, dtype=si.dtype)
     # method="sort": the default binary-search lowering is ~1e7 serial-ish
-    # gathers on TPU — measured 417 ms vs 44 ms at (N=2M, 128³ cells).
+    # gathers.
     hi = jnp.searchsorted(si, cells, side="right", method="sort")
     lo_b = jnp.concatenate([jnp.zeros((1,), hi.dtype), hi[:-1]])
     xpad = jnp.concatenate([jnp.zeros((1,), x.dtype), x])
@@ -273,7 +272,7 @@ def cic_gather(
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "grid", "eps2", "n_real", "mesh_backend", "boundary", "box_size",
+        "grid", "eps2", "n_real", "boundary", "box_size",
         "sigma_cells", "interlace",
     ),
 )
@@ -284,7 +283,6 @@ def accel_pm(
     grid: int = DEFAULT_PM_GRID,
     eps2: float = 1e-4,
     n_real: int | None = None,
-    mesh_backend: str = "auto",
     boundary: str = "isolated",
     box_size: float = 0.0,
     sigma_cells: float = 1.5,
@@ -297,11 +295,6 @@ def accel_pm(
     semantics, ``util.js:48-54``); the box adapts to the real bodies each
     step.  Short-range pairs (≲ 3 cells) are grid-smoothed — that is the
     PM trade; see ``tests/test_pm.py`` for the quantified contract.
-    ``mesh_backend`` dispatches the deposit/gather: ``"auto"`` runs the
-    XLA sort/segment-scan pipeline (measured faster-or-par for 4-point
-    CIC at every N — see the dispatch comment below); explicit
-    ``"pallas"`` runs the MXU tile kernels over a Morton sort
-    (:func:`mesh_pallas.pm_accel`); both are differentiable.
 
     ``boundary="periodic"`` (requires ``box_size > 0``) solves on the
     triply-periodic torus ``[0, box_size)³`` instead: fixed cell size
@@ -353,36 +346,9 @@ def accel_pm(
         raise ValueError(f"unknown boundary {boundary!r}")
     lo, h = _box(pos[:n_real], grid)
 
-    block = divisor_block(n, 256)
-    # CIC stays on the XLA pipeline under "auto": measured on one v5e
-    # (benchmarks/mesh_kernel_bench.py, round 3) the 4-point CIC tile
-    # kernels are par at 2M (157 vs 152 ms/step) and SLOWER at 16M
-    # (1.54 vs 1.04 s/step) — too little deposit arithmetic per tile to
-    # beat XLA's sorted segment-sum, unlike P3M's 27-point TSC where the
-    # tile kernels win 6.6x on deposit.  Explicit mesh_backend="pallas"
-    # still dispatches the tile path.
-    use_tiles = block % 128 == 0 and 32 <= grid <= 128 and (
-        mesh_backend in ("pallas", "pallas_interpret")
-    )
-    if use_tiles:
-        # Tile path wants the Morton layout; physics is permutation-
-        # invariant, so sort, compute, inverse-permute (gathers only).
-        from nbody3d_tpu.ops.mesh_pallas import pm_accel
-        from nbody3d_tpu.ops.morton import morton_keys
-
-        keys = morton_keys(pos_mass, n_real)
-        perm = jnp.argsort(keys, stable=True)
-        ps = pos_mass[perm]
-        acc_s = pm_accel(
-            ps, lo, h, grid=grid, eps2=float(eps2), block=block,
-            backend="pallas_interpret"
-            if mesh_backend == "pallas_interpret" else "pallas",
-        )
-        acc = acc_s[jnp.argsort(perm)] * jnp.float32(G)
-    else:
-        i0, f = _cic_cells(pos, lo, h, grid)
-        rho = cic_deposit(pos, pos_mass[:, 3], lo, h, grid)
-        phi = solve_potential(rho, h, float(eps2))
-        grids = force_grids(phi, h)
-        acc = cic_gather(grids, i0, f, grid) * jnp.float32(G)
+    i0, f = _cic_cells(pos, lo, h, grid)
+    rho = cic_deposit(pos, pos_mass[:, 3], lo, h, grid)
+    phi = solve_potential(rho, h, float(eps2))
+    grids = force_grids(phi, h)
+    acc = cic_gather(grids, i0, f, grid) * jnp.float32(G)
     return jnp.concatenate([acc, jnp.zeros((n, 1), jnp.float32)], axis=1)

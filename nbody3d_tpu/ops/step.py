@@ -1,11 +1,10 @@
-"""Single-chip step construction: backend dispatch + scan loop.
+"""Single-device step construction: backend dispatch + scan loop.
 
 The reference couples one simulation step to one displayed frame
-(``nbody3d.js:474-505``, SURVEY §3.2).  The TPU design breaks that coupling:
+(``nbody3d.js:474-505``, SURVEY §3.2).  This design breaks that coupling:
 ``make_step_fn`` builds a pure ``state -> state`` function, and
 ``make_scan_fn`` wraps K of them in ``jax.lax.scan`` with donated state so
-particles stay HBM-resident across the whole chunk (BASELINE north star) —
-the host only sees state every K steps (for logging / render taps).
+particles stay in device memory across the whole chunk — the host only sees state every K steps (for logging / render taps).
 """
 
 from __future__ import annotations
@@ -19,40 +18,13 @@ from jax import lax
 
 from nbody3d_tpu.config import SimConfig
 from nbody3d_tpu.ops.force_jnp import accel_direct
-from nbody3d_tpu.ops.integrate import apply_integrator, integrate_state
-from nbody3d_tpu.ops.pallas_force import (
-    accel_pallas,
-    accel_pair_sym_pallas,
-    accel_sym_pallas,
-    fused_step_pallas,
-    src_limbs,
-    src_transposed,
-    sym_verlet_step_pallas,
-)
+from nbody3d_tpu.ops.integrate import integrate_state
+from nbody3d_tpu.ops.pallas_force import PAD_MULTIPLE, direct_accel
 from nbody3d_tpu.state import SimState
 
 StepFn = Callable[[SimState, jax.Array, jax.Array], SimState]
 
-# Engine padding granule: n_pad is always a multiple of this, so block
-# fitting below always succeeds with FULL-SIZE blocks.  Large-block kernels
-# are ~25% faster than 256-block ones (benchmarks/fast_tune.py), and the
-# worst-case padding overhead (< granule/N extra bodies, squared) is far
-# cheaper: e.g. the reference-default N=40,002 pads to 40,960 (+4.8%
-# pair-compute) instead of dropping to 256-wide blocks.
-PAD_GRANULE = 2048
-
-# The sym schedule keeps a (nt, 16, B) = N*64-byte accumulator resident in
-# VMEM; beyond this body count that plus the (B, B) temporaries exceeds the
-# v5e's 128 MB, so huge single-chip runs switch to the MACRO-TILED sym
-# schedule (chunks of <= this size, sym on diagonal chunks + Newton-3 pair
-# kernel on unordered chunk pairs).  Multi-chip shards never hit this:
-# per-shard N/D is small.
-SYM_MAX_N = 768 * 1024
-
-# Since the condition-free 3-call sym form, the direct schedule wins at
-# every size that fits the VMEM cap (256k: direct 400 vs best macro 391
-# G-int/s; 40k: 256); macro-tiling now exists ONLY to honor SYM_MAX_N.
-MACRO_MIN_N = SYM_MAX_N
+BACKENDS = ("auto", "pallas", "pallas_interpret", "jnp")
 
 
 def fit_block(n: int, want: int, floor: int = 8) -> int:
@@ -67,98 +39,53 @@ def fit_block(n: int, want: int, floor: int = 8) -> int:
     return b
 
 
-def fit_sym_block(n: int, want: int, floor: int = 8) -> int:
-    """Block fitting for the symmetric schedule.  Since the 3-call
-    condition-free form, any block count works (odd included — the
-    half-hop call simply doesn't exist then), so this is plain
-    :func:`fit_block`; kept as a named alias for the sym call sites."""
-    return fit_block(n, want, floor)
-
-
 def resolve_backend(config: SimConfig, platform: str | None = None) -> tuple[str, bool]:
-    """Resolve ``config.backend`` ("auto") against the runtime platform.
-    Returns ``(backend, interpret)`` where ``interpret`` runs the Pallas
-    kernel in interpreter mode (CPU testing of the TPU kernel)."""
+    """The one place that looks at the platform.  Returns ``(backend,
+    interpret)``: ``"auto"`` is the Triton direct kernel on the GPU and
+    the plain jnp path elsewhere; ``"pallas"`` is the kernel and needs the
+    GPU; ``"pallas_interpret"`` runs the kernel in the Pallas interpreter
+    on any platform (tests); ``"jnp"`` is the plain path."""
     if platform is None:
         platform = jax.default_backend()
     backend = config.backend
     if backend == "auto":
-        backend = "pallas" if platform == "tpu" else "jnp"
-    interpret = backend == "pallas" and platform != "tpu"
-    return backend, interpret
-
-
-def make_sym_accel_fn(config: SimConfig, n_pad: int, interpret: bool):
-    """Single-set Newton-3 accelerations ``accel(pos_mass, G) -> (N,4)``:
-    the direct 3-call sym schedule up to the VMEM cap, otherwise the
-    macro-tiled composition (sym on diagonal chunks + pair kernel on
-    unordered chunk pairs).  Shared by the single-chip step and the
-    Newton-3 ring's hop 0 (whose shard can exceed the cap on
-    few-chip/huge-N runs)."""
-    if n_pad <= MACRO_MIN_N:
-        b = fit_sym_block(n_pad, config.block_target)
-
-        def accel(pos_mass, G):
-            return accel_sym_pallas(
-                pos_mass, G, eps2=config.eps2, block=b, interpret=interpret
+        return ("pallas" if platform == "gpu" else "jnp"), False
+    if backend == "pallas":
+        if platform != "gpu":
+            raise ValueError(
+                f"backend='pallas' compiles the Triton kernel for the GPU, "
+                f"but the platform is {platform!r}; use backend='jnp' (or "
+                f"'pallas_interpret' to test the kernel in the interpreter)"
             )
-
-        return accel
-
-    # Beyond the cap: as few (= as large) chunks as fit, since the 3-call
-    # diagonals now run at rectangle-class efficiency.
-    m_chunks = -(-n_pad // SYM_MAX_N)
-    while n_pad % m_chunks != 0:
-        m_chunks += 1
-    chunk_n = n_pad // m_chunks
-    b = fit_sym_block(chunk_n, config.block_target)
-
-    def accel(pos_mass, G):
-        chunks = [
-            lax.slice_in_dim(pos_mass, a * chunk_n, (a + 1) * chunk_n)
-            for a in range(m_chunks)
-        ]
-        accs = [
-            accel_sym_pallas(c, G, eps2=config.eps2, block=b, interpret=interpret)
-            for c in chunks
-        ]
-        for a in range(m_chunks):
-            for c2 in range(a + 1, m_chunks):
-                at, ar = accel_pair_sym_pallas(
-                    chunks[a], chunks[c2], G,
-                    eps2=config.eps2, block=b, interpret=interpret,
-                )
-                accs[a] = accs[a] + at
-                accs[c2] = accs[c2] + ar
-        return jnp.concatenate(accs, axis=0)
-
-    return accel
+        return "pallas", False
+    if backend == "pallas_interpret":
+        return "pallas", True
+    if backend == "jnp":
+        return "jnp", False
+    raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
 
 
-def make_mesh_accel_fn(
-    config: SimConfig, n_real: int, backend: str, interpret: bool
-):
+def pad_multiple(config: SimConfig, n: int, platform: str | None = None) -> int:
+    """Body-count multiple the engine pads ``n`` bodies to: whole kernel
+    blocks on the kernel backends; on the plain path whole 256-target
+    chunks once it chunks (above 4,096 bodies), else 8, so tiny CPU runs
+    stay tiny."""
+    backend, _ = resolve_backend(config, platform)
+    if backend == "pallas":
+        return PAD_MULTIPLE
+    return 256 if n > 4096 else 8
+
+
+def make_mesh_accel_fn(config: SimConfig, n_real: int):
     """Mesh-solver accelerations ``accel(pos_mass, G) -> (N, 4)`` for
     ``config.method`` in {"pm", "p3m"} — the shared force closure of the
     plain step builders below and the comoving-coordinate cosmology step
     (ops/expansion.py).
 
     PM: particle-mesh FFT solver (ops/pm.py) — O(N + M^3 log M) grid
-    gravity.  The CIC deposit/gather stays on the XLA pipeline on every
-    backend ("auto"): the 4-point CIC tile kernels measured par at 2M
-    and 48% SLOWER at 16M (1.54 vs 1.04 s/step — too little deposit
-    arithmetic per tile to beat XLA's sorted segment-sum; accel_pm's
-    dispatch comment).  Passing the resolved backend here instead was
-    the round-3 regression that produced BASELINE's 1.04-vs-1.54
-    discrepancy: pm_bench times this step, and "pallas" flipped it onto
-    the tile path.
-
-    P3M: PM far field + exact short-range correction (ops/p3m.py):
-    ~1e-3 force accuracy vs direct at near-PM cost.  BOTH hot passes
-    follow the resolved backend: the block-sparse Pallas short-range
-    kernel and the MXU mesh tile kernels on TPU (each with a jnp-oracle
-    custom VJP, so grad works there too), the jnp forms on CPU / jnp
-    backend (the pure-XLA A/B oracle).
+    gravity.  P3M: PM far field + exact short-range correction
+    (ops/p3m.py): ~1e-3 force accuracy vs direct at near-PM cost.  Both
+    are plain XLA on every platform.
     """
     if config.method == "pm":
         from nbody3d_tpu.ops.pm import accel_pm
@@ -167,7 +94,6 @@ def make_mesh_accel_fn(
             return accel_pm(
                 pos_mass, G,
                 grid=config.pm_grid, eps2=config.eps2, n_real=n_real,
-                mesh_backend="auto",
                 boundary=config.boundary, box_size=config.box_size,
                 interlace=config.mesh_interlace,
             )
@@ -177,8 +103,6 @@ def make_mesh_accel_fn(
     if config.method == "p3m":
         from nbody3d_tpu.ops.p3m import accel_p3m
 
-        short = "pallas" if backend == "pallas" and not interpret else "jnp"
-
         def accel(pos_mass, G):
             return accel_p3m(
                 pos_mass, G,
@@ -186,8 +110,7 @@ def make_mesh_accel_fn(
                 sigma_cells=config.p3m_sigma_cells,
                 rcut_sigmas=config.p3m_rcut_sigmas,
                 block=config.p3m_block, nbr_k=config.p3m_nbr_k,
-                heavy_k=config.p3m_heavy_k, short_backend=short,
-                mesh_backend=short,
+                heavy_k=config.p3m_heavy_k,
                 boundary=config.boundary, box_size=config.box_size,
                 interlace=config.mesh_interlace,
             )
@@ -199,85 +122,15 @@ def make_mesh_accel_fn(
     )
 
 
-def make_fused_sym_step(
-    config: SimConfig, n_pad: int, n_real: int, interpret: bool
-) -> StepFn:
-    """The fused single-chip sym/verlet step (``sym_verlet_step_pallas``)
-    wrapped in a ``jax.custom_vjp`` so ``jax.grad`` flows through it.
-
-    Forward: the all-Pallas fused pipeline (no XLA glue).  Backward:
-    the integrator stage is differentiated as plain elementwise jnp AD
-    (``apply_integrator`` is cheap O(N)), and the force stage's cotangent
-    feeds the hand-written Newton-3 VJP kernel
-    (:func:`nbody3d_tpu.ops.force_vjp.force_vjp_sym_pallas`) — the exact
-    pairing the unfused path gets from ``make_diff_accel``, so gradient
-    accuracy/cost contracts (grad_bench gates) are unchanged.
-    """
-    from nbody3d_tpu.ops.force_vjp import force_vjp_sym_pallas
-
-    b = fit_sym_block(n_pad, config.block_target)
-    eps2 = config.eps2
-    precise = config.grad_precision != "fast"
-    nr: int | None = None if n_real >= n_pad else n_real
-    if nr is not None:
-        idx = jax.lax.broadcasted_iota(jnp.int32, (n_pad, 1), 0)
-        valid = idx < nr
-    else:
-        valid = None
-
-    @jax.custom_vjp
-    def step3(pm, v, a_old, dt, G):
-        return sym_verlet_step_pallas(
-            pm, v, a_old, dt, G,
-            eps2=eps2, block=b, n_real=nr, interpret=interpret,
-        )
-
-    def fwd(pm, v, a_old, dt, G):
-        out = sym_verlet_step_pallas(
-            pm, v, a_old, dt, G,
-            eps2=eps2, block=b, n_real=nr, interpret=interpret,
-        )
-        # Residuals: inputs + the step's stored acceleration (the force
-        # at pm, valid-masked — exactly what the backward needs).
-        return out, (pm, v, a_old, out[2], dt, G)
-
-    def bwd(res, cots):
-        pm, v, a_old, a_new, dt, G = res
-
-        def integ(pm_, v_, aold_, a_, dt_):
-            return apply_integrator("verlet", pm_, v_, aold_, a_, dt_, valid)
-
-        _, pull = jax.vjp(integ, pm, v, a_old, a_new, jnp.float32(dt))
-        gpm_direct, gv, ga_old, ga_force, gdt = pull(cots)
-        pm_bar, g_bar = force_vjp_sym_pallas(
-            pm, G, ga_force,
-            eps2=eps2, block=min(b, 1024), precise=precise,
-            interpret=interpret,
-        )
-        return gpm_direct + pm_bar, gv, ga_old, gdt, g_bar
-
-    step3.defvjp(fwd, bwd)
-
-    def step(state: SimState, dt, G) -> SimState:
-        p, v, a = step3(state.pos_mass, state.vel, state.accel, dt, G)
-        return SimState(p, v, a, state.step + 1)
-
-    return step
-
-
 def make_step_fn(
     config: SimConfig, n_pad: int, n_real: int, platform: str | None = None
 ) -> StepFn:
-    """Build ``step(state, dt, G) -> state`` for one chip.
+    """Build ``step(state, dt, G) -> state`` for one device.
 
     ``dt`` and ``G`` are traced scalars: changing them (sliders, pause) does
     not recompile — only changing the static config/shapes does.
     """
     backend, interpret = resolve_backend(config, platform)
-    bt = fit_block(n_pad, config.block_target)
-    bs = fit_block(n_pad, config.block_source)
-
-    force_mode = config.force_mode
 
     if config.boundary == "periodic" and config.method not in ("pm", "p3m"):
         raise ValueError(
@@ -294,136 +147,37 @@ def make_step_fn(
         # closure as the plain periodic step.
         from nbody3d_tpu.ops.expansion import make_cosmo_step_fn
 
-        return make_cosmo_step_fn(config, n_pad, n_real, backend, interpret)
+        return make_cosmo_step_fn(config, n_pad, n_real)
 
-    if config.method == "pm":
-
-        accel_fn = make_mesh_accel_fn(config, n_real, backend, interpret)
-
-        def step(state: SimState, dt, G) -> SimState:
-            return integrate_state(
-                config.integrator, lambda pm_: accel_fn(pm_, G),
-                state, dt, n_real=n_real,
-            )
-
-    elif config.method == "p3m":
-
-        accel_fn = make_mesh_accel_fn(config, n_real, backend, interpret)
-
-        def step(state: SimState, dt, G) -> SimState:
-            return integrate_state(
-                config.integrator, lambda pm_: accel_fn(pm_, G),
-                state, dt, n_real=n_real,
-            )
-
-    elif (
-        backend == "pallas"
-        and force_mode == "sym"
-        and config.integrator == "verlet"
-        and config.fuse_epilogue
-        and n_pad <= MACRO_MIN_N
-        and n_pad // fit_sym_block(n_pad, config.block_target) >= 2
-    ):
-        # The headline single-chip mode, fully fused (round 5): the
-        # Newton-3 kernels' RAW accumulators feed one O(N) Pallas
-        # epilogue doing the limb combine AND the Verlet update —
-        # no XLA glue passes between force and next state
-        # (sym_verlet_step_pallas).  jax.grad still works: the step is a
-        # custom_vjp whose backward runs the elementwise integrator AD
-        # plus the hand-written force VJP (same kernels as the unfused
-        # path's make_diff_accel).
-        step = make_fused_sym_step(config, n_pad, n_real, interpret)
-
-    elif backend == "pallas" and force_mode == "sym":
-        # Newton-3 schedule (round-robin below MACRO_MIN_N, macro-tiled
-        # above — see make_sym_accel_fn); yoshida4/euler integrators, and
-        # the VMEM-cap escape.  Measured at 256k: macro M=4 365 G-int/s
-        # vs single round-robin 310 (M=2: 350, M=8: 357); 2M reaches 433.
-        # Integration runs as XLA elementwise ops.
-        # Wrapped with the hand-written VJP (ops/force_vjp.py) so
-        # jax.grad flows through the Pallas path at TPU speed.
-        from nbody3d_tpu.ops.force_vjp import make_diff_accel
-
-        sym_accel = make_diff_accel(
-            make_sym_accel_fn(config, n_pad, interpret),
-            eps2=config.eps2, block=bt,
-            precise=config.grad_precision != "fast", interpret=interpret,
-        )
-
-        def step(state: SimState, dt, G) -> SimState:
-            return integrate_state(
-                config.integrator, lambda pm_: sym_accel(pm_, G),
-                state, dt, n_real=n_real,
-            )
-
-    elif backend == "pallas" and config.integrator == "verlet" and config.fuse_integrate:
-
-        def step(state: SimState, dt, G) -> SimState:
-            p, v, a = fused_step_pallas(
-                state.pos_mass,
-                state.vel,
-                state.accel,
-                dt,
-                G,
-                eps2=config.eps2,
-                n_real=n_real,
-                block_target=bt,
-                block_source=bs,
-                mode=force_mode,
-                interpret=interpret,
-            )
-            return SimState(p, v, a, state.step + 1)
+    if config.method in ("pm", "p3m"):
+        accel = make_mesh_accel_fn(config, n_real)
 
     elif backend == "pallas":
-        from nbody3d_tpu.ops.force_vjp import make_diff_accel
+        # The Triton direct kernel (ops/pallas_force.py), differentiable
+        # through its chunked reference VJP.
+        def accel(pm_, G):
+            return direct_accel(pm_, G, eps2=config.eps2, interpret=interpret)
 
-        def _accel(pos_mass, G):
-            srcT = src_transposed(pos_mass, G)
-            src10 = src_limbs(pos_mass, G) if force_mode == "fast" else None
-            return accel_pallas(
-                pos_mass,
-                srcT,
-                src10,
-                eps2=config.eps2,
-                block_target=bt,
-                block_source=bs,
-                mode=force_mode,
-                interpret=interpret,
-            )
-
-        accel = make_diff_accel(
-            _accel, eps2=config.eps2, block=bt,
-            precise=config.grad_precision != "fast", interpret=interpret,
-        )
-
-        def step(state: SimState, dt, G) -> SimState:
-            return integrate_state(
-                config.integrator, lambda pm_: accel(pm_, G),
-                state, dt, n_real=n_real,
-            )
-
-    elif backend == "jnp":
+    else:
         # Chunk the jnp oracle to bound memory at O(chunk * N).
         chunk = fit_block(n_pad, 256) if n_pad > 4096 else None
 
-        def step(state: SimState, dt, G) -> SimState:
-            def accum(pm_):
-                return accel_direct(pm_, G, eps2=config.eps2, chunk=chunk)
+        def accel(pm_, G):
+            return accel_direct(pm_, G, eps2=config.eps2, chunk=chunk)
 
-            return integrate_state(
-                config.integrator, accum, state, dt, n_real=n_real
-            )
-
-    else:
-        raise ValueError(f"unknown backend {backend!r}")
+    def step(state: SimState, dt, G) -> SimState:
+        return integrate_state(
+            config.integrator, lambda pm_: accel(pm_, G), state, dt,
+            n_real=n_real,
+        )
 
     return step
 
 
 def make_scan_fn(step_fn: StepFn):
     """Wrap a step function into ``run(state, dt, G, k) -> state`` executing
-    k steps under one jitted ``lax.scan`` with donated state — the TPU
-    replacement for the per-frame requestAnimationFrame loop
+    k steps under one jitted ``lax.scan`` with donated state — the
+    device-resident replacement for the per-frame requestAnimationFrame loop
     (``nbody3d.js:505``)."""
 
     @functools.partial(jax.jit, static_argnames=("k",), donate_argnums=(0,))

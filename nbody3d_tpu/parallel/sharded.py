@@ -7,7 +7,7 @@ times { accumulate partial forces of resident-targets x rotating-sources
 with the tiled force kernel; ``lax.ppermute`` the source buffer to the ring
 neighbor }, then apply the Verlet update locally.  The permute for step
 k+1 is issued *before* the force kernel for step k so XLA's async
-collectives can overlap the ICI transfer with compute (double buffering by
+collectives can overlap the transfer with compute (double buffering by
 dataflow).
 
 This is bit-for-bit the ring-attention communication schedule minus
@@ -15,9 +15,9 @@ online-softmax rescaling — the single-device analog is the reference's
 workgroup-shared source tile loop (``nbody3d.js:255-272``), which ring
 exchange generalizes across chips.
 
-Self-pair masking uses global indices: ring step k's source shard sits
-``k * shard`` ahead of the targets in global ordering, so only k == 0
-applies the diagonal mask (``nbody3d.js:265`` semantics).
+No hop needs a self-pair mask: a body meeting itself has a separation of
+exactly zero and adds nothing (``eps2 > 0``), so the same force kernel
+serves every hop of every strategy.
 """
 
 from __future__ import annotations
@@ -33,21 +33,8 @@ from nbody3d_tpu.config import SimConfig
 from nbody3d_tpu.ops import diagnostics as diag
 from nbody3d_tpu.ops.force_jnp import accel_partial
 from nbody3d_tpu.ops.integrate import integrate_from_accum
-from nbody3d_tpu.ops.pallas_force import (
-    NO_DIAG,
-    accel_pallas,
-    accel_pair_sym_pallas,
-    src_limbs,
-    src_transposed,
-)
-from nbody3d_tpu.ops.pallas_force import sym_operands
-from nbody3d_tpu.ops.step import (
-    SYM_MAX_N,
-    fit_block,
-    fit_sym_block,
-    make_sym_accel_fn,
-    resolve_backend,
-)
+from nbody3d_tpu.ops.pallas_force import accel_pallas, src_transposed
+from nbody3d_tpu.ops.step import fit_block, resolve_backend
 from nbody3d_tpu.state import SimState
 
 # Unrolling the ring as a Python loop keeps each ppermute an independent op
@@ -84,8 +71,7 @@ def make_sharded_step(
 
     Requires ``n_pad`` divisible by ``D * block`` so every shard is
     kernel-aligned (the engine pads accordingly).  Strategies: "ring"
-    (1-D ppermute rotation), "ringsym" (Newton-3 half ring,
-    :func:`make_ringsym_step`), "gather" (all_gather sources), "2d" (grid
+    (1-D ppermute rotation), "gather" (all_gather sources), "2d" (grid
     force decomposition over a 2-axis mesh, :func:`make_grid2d_step`).
     """
     if config.cosmology != "none":
@@ -97,59 +83,24 @@ def make_sharded_step(
     if config.method == "pm":
         # The PM grid replaces pairwise exchange entirely: wire cost is one
         # psum of the mass grid, whatever the strategy says.
-        return make_pm_sharded_step(config, n_pad, n_real, mesh, platform)
+        return make_pm_sharded_step(config, n_pad, n_real, mesh)
     if config.method == "p3m":
-        return make_p3m_sharded_step(config, n_pad, n_real, mesh, platform)
+        return make_p3m_sharded_step(config, n_pad, n_real, mesh)
     if config.strategy == "2d":
         return make_grid2d_step(config, n_pad, n_real, mesh, platform)
-    if config.strategy == "ringsym" or (
-        config.strategy == "ring" and config.force_mode == "sym"
-    ):
-        # force_mode="sym" on a ring means the Newton-3 half ring — the
-        # multi-chip continuation of the single-chip symmetric schedule.
-        return make_ringsym_step(config, n_pad, n_real, mesh, platform)
     axis = config.mesh_axis
     d = mesh.shape[axis]
     if n_pad % d != 0:
         raise ValueError(f"n_pad={n_pad} not divisible by mesh size {d}")
     shard = n_pad // d
     backend, interpret = resolve_backend(config, platform)
-    bt = fit_block(shard, config.block_target)
-    bs = fit_block(shard, config.block_source)
 
-    # The symmetric single-chip schedule doesn't decompose over the ring
-    # (it needs both blocks' outputs per pair); hops use the rectangular
-    # fast kernel instead.
-    mode = "fast" if config.force_mode == "sym" else config.force_mode
-    fast = mode == "fast"
-
-    def local_force(tgt, src_pos_mass, G, bs_eff, static_diag=None, diag=None):
-        """Accel of local targets vs one source shard (pos_mass layout).
-
-        A pair is a self-pair iff ``source_col == target_row + offset`` in
-        shard-local indices.  Exact mode needs no mask (zero separation =>
-        zero contribution), but the fast MXU path must exclude the
-        self-pair by index or its softening-floor weight corrupts the f32
-        accumulator (ops.pallas_force._accum_fast).  ``static_diag``
-        (python-int triple) compiles condition-free kernels; ``diag``
-        (traced scalar) is for axis_index-dependent diagonals."""
+    def local_force(tgt, src_pos_mass, G):
+        """Accel of local targets vs one source shard (pos_mass layout)."""
         srcT = src_transposed(src_pos_mass, G)
         if backend == "pallas":
-            src10 = src_limbs(src_pos_mass, G) if fast else None
-            return accel_pallas(
-                tgt,
-                srcT,
-                src10,
-                diag,
-                eps2=config.eps2,
-                block_target=bt,
-                block_source=bs_eff,
-                mode=mode,
-                interpret=interpret,
-                static_diag=static_diag,
-            )
-        off = static_diag[0] if static_diag is not None else diag
-        return accel_partial(tgt, srcT, off, eps2=config.eps2)
+            return accel_pallas(tgt, srcT, eps2=config.eps2, interpret=interpret)
+        return accel_partial(tgt, srcT, eps2=config.eps2)
 
     ring_perm = [(i, (i + 1) % d) for i in range(d)]
 
@@ -163,45 +114,26 @@ def make_sharded_step(
             # exchange schedule per sub-step.
             if config.strategy == "gather" or d == 1:
                 all_pm = lax.all_gather(pm_, axis, axis=0, tiled=True)  # (n_pad, 4)
-                # Local row r is global my*shard + r == gathered source
-                # column: the offset depends on axis_index, so the
-                # traced-diagonal kernel handles it.
-                return local_force(
-                    pm_, all_pm, G, fit_block(n_pad, config.block_source),
-                    diag=my * shard,
-                )
+                return local_force(pm_, all_pm, G)
             if config.strategy != "ring":
                 raise ValueError(f"unknown strategy {config.strategy!r}")
-            # Rotate the raw pos_mass shard (16 B/body over ICI); the kernel
-            # input layouts (srcT / limb matrix) are recomputed locally per
-            # hop — O(shard) work vs O(shard^2) force math.  Self-pairs
-            # exist only at hop 0 (the resident shard against itself), so
-            # hop 0 uses the statically-masked kernel split and every later
-            # hop the condition-free NO_DIAG kernel — both full-throughput
-            # paths (ops.pallas_force: conditional masked dots cost ~30%).
-            SELF = (0, 0, NO_DIAG)  # hop 0: resident shard vs itself
-            DISJOINT = (NO_DIAG, 0, NO_DIAG)  # later hops: no self-pairs
+            # Rotate the raw pos_mass shard (16 B/body); the kernel's
+            # source rows are rebuilt locally per hop — O(shard) work vs
+            # O(shard^2) force math.
 
-            def ring_body(sd, carry):
+            def ring_body(carry):
                 acc, src = carry
                 # Issue the permute first: no data dependency with the force
-                # kernel on `src`, so XLA can run the ICI transfer async.
+                # kernel on `src`, so XLA can run the transfer async.
                 nxt = lax.ppermute(src, axis, ring_perm)
-                acc = acc + local_force(pm_, src, G, bs, static_diag=sd)
-                return acc, nxt
+                return acc + local_force(pm_, src, G), nxt
 
-            acc = jnp.zeros_like(pm_)
+            carry = (jnp.zeros_like(pm_), pm_)
             if d <= _MAX_UNROLL:
-                carry = (acc, pm_)
-                for k in range(d):
-                    carry = ring_body(SELF if k == 0 else DISJOINT, carry)
+                for _ in range(d):
+                    carry = ring_body(carry)
                 return carry[0]
-            # rolled fallback: hop 0 (the only masked one) outside the loop
-            carry = ring_body(SELF, (acc, pm_))
-            acc, _ = lax.fori_loop(
-                1, d, lambda k, c: ring_body(DISJOINT, c), carry
-            )
-            return acc
+            return lax.fori_loop(0, d, lambda k, c: ring_body(c), carry)[0]
 
         # Local integration with the global ``index < nBodies`` guard.
         rows = lax.broadcasted_iota(jnp.int32, (shard, 1), 0) + my * shard
@@ -216,186 +148,8 @@ def make_sharded_step(
         mesh=mesh,
         in_specs=(P(axis, None), P(axis, None), P(axis, None), P(), P(), P()),
         out_specs=(P(axis, None), P(axis, None), P(axis, None), P()),
-        # pallas_call outputs don't carry varying-mesh-axis metadata yet;
-        # the specs above fully pin the shardings.
-        check_vma=False,
-    )
-
-    def step(state: SimState, dt, G) -> SimState:
-        p, v, a, s = sharded(
-            state.pos_mass,
-            state.vel,
-            state.accel,
-            state.step,
-            jnp.float32(dt),
-            jnp.float32(G),
-        )
-        return SimState(p, v, a, s)
-
-    return step
-
-
-def make_ringsym_step(
-    config: SimConfig,
-    n_pad: int,
-    n_real: int,
-    mesh: jax.sharding.Mesh,
-    platform: str | None = None,
-) -> Callable[[SimState, jax.Array, jax.Array], SimState]:
-    """Newton-3 ring ("half-shell" schedule): each unordered SHARD pair is
-    computed by exactly one chip, both directions from one weight-chain
-    evaluation — half the ring's compute at equal wire bytes.
-
-    Forward phase: rotate the pos_mass shard ``H`` hops (``H = D//2``); at
-    hop k, chip ``i`` holds shard ``i-k`` and runs the rectangular pair
-    kernel (:func:`accel_pair_sym_pallas`): the target-side partial
-    accumulates locally, the source-side partial ``rev_k`` (owed to chip
-    ``i-k``) is stored.  Hop 0 is the shard against itself via the
-    single-chip sym kernel.  For even D the last hop's pair is shared by
-    two chips; only ``i < D/2`` computes (the other half idles that hop).
-
-    Return phase: a carry buffer rotates BACKWARD ``H`` hops; chip ``i``
-    adds ``rev_k`` just before the carry's k-th remaining shift, so each
-    contribution lands exactly at its owner: added at loop value k, it is
-    shifted during iterations k, k-1, ..., 1 — k backward hops — reaching
-    ``i - k``.  Total traffic: H forward + H backward rotations of
-    16 B/body = the plain ring's D hops, while the O(N^2/D) force math
-    halves.  Weights are shared between directions (exact ij/ji
-    antisymmetry), matching single-chip sym conservation behavior.
-    """
-    axis = config.mesh_axis
-    d = mesh.shape[axis]
-    if n_pad % d != 0:
-        raise ValueError(f"n_pad={n_pad} not divisible by mesh size {d}")
-    shard = n_pad // d
-    backend, interpret = resolve_backend(config, platform)
-    if backend == "pallas" and config.force_mode == "exact":
-        raise ValueError(
-            "strategy 'ringsym' is the bf16 Newton-3 schedule (~0.2% weight "
-            "noise); use strategy='ring' with force_mode='exact' for ~1 ulp "
-            "forces"
-        )
-    if backend == "pallas":
-        b = fit_sym_block(shard, config.block_target)
-        # hop 0 (shard vs itself) goes through the macro-aware sym
-        # dispatcher, and pair hops chunk their SOURCE side, so a huge
-        # per-shard N on a small mesh cannot blow the VMEM cap (the pair
-        # kernel's reverse accumulator is source_count * 64 bytes resident).
-        sym_self = make_sym_accel_fn(config, shard, interpret)
-        n_src_chunks = -(-shard // SYM_MAX_N)
-        while shard % n_src_chunks != 0:
-            n_src_chunks += 1
-        src_chunk = shard // n_src_chunks
-
-    fwd_perm = [(i, (i + 1) % d) for i in range(d)]
-    bwd_perm = [(i, (i - 1) % d) for i in range(d)]
-    n_hops = d // 2  # pair hops; for even d the last is the shared half-hop
-    even = d % 2 == 0
-
-    def self_force(pm, G):
-        if backend == "pallas":
-            return sym_self(pm, G)
-        srcT = src_transposed(pm, G)
-        return accel_partial(pm, srcT, 0, eps2=config.eps2)
-
-    def pair_force(tgt, src, G, tgt_pack):
-        if backend == "pallas":
-            if n_src_chunks == 1:
-                return accel_pair_sym_pallas(
-                    tgt, src, G, eps2=config.eps2, block=b,
-                    interpret=interpret, tgt_pack=tgt_pack,
-                )
-            at = None
-            ars = []
-            for a in range(n_src_chunks):
-                sc = lax.slice_in_dim(src, a * src_chunk, (a + 1) * src_chunk)
-                at_a, ar_a = accel_pair_sym_pallas(
-                    tgt, sc, G, eps2=config.eps2, block=b,
-                    interpret=interpret, tgt_pack=tgt_pack,
-                )
-                at = at_a if at is None else at + at_a
-                ars.append(ar_a)
-            return at, jnp.concatenate(ars, axis=0)
-        # jnp fallback: two partial evaluations (no weight sharing — the
-        # oracle path trades the 2x saving for simplicity)
-        at = accel_partial(tgt, src_transposed(src, G), NO_DIAG, eps2=config.eps2)
-        ar = accel_partial(src, src_transposed(tgt, G), NO_DIAG, eps2=config.eps2)
-        return at, ar
-
-    def local_step(pos_mass, vel, accel, step, dt, G):
-        my = lax.axis_index(axis)
-
-        def accum(pm_):
-            # Whole Newton-3 schedule at positions ``pm_`` (closure so
-            # multi-eval integrators re-run the exchange per sub-step).
-            acc = self_force(pm_, G)
-            # the resident shard's target-side operand pack is hop-invariant
-            tgt_pack = (
-                sym_operands(pm_, G, b) if backend == "pallas" else None
-            )
-
-            def fwd_hop(k, acc, src):
-                src = lax.ppermute(src, axis, fwd_perm)  # now shard of my-k
-                at, ar = pair_force(pm_, src, G, tgt_pack)
-                if even:
-                    # shared half-hop: pair {i, i+d/2} computed only by i < d/2
-                    keep = jnp.where(
-                        jnp.logical_or(k != n_hops, my < d // 2), 1.0, 0.0
-                    ).astype(at.dtype)
-                    at = at * keep
-                    ar = ar * keep
-                return acc + at, ar, src
-
-            carry = jnp.zeros_like(pm_)
-            if n_hops <= _MAX_UNROLL:
-                revs = []
-                src = pm_
-                for k in range(1, n_hops + 1):
-                    acc, ar, src = fwd_hop(k, acc, src)
-                    revs.append(ar)
-                for k in range(n_hops, 0, -1):
-                    carry = lax.ppermute(carry + revs[k - 1], axis, bwd_perm)
-            elif n_hops > 0:
-                # rolled fallback for big meshes (the plain ring does the same
-                # beyond _MAX_UNROLL): stash per-hop reverse partials in a
-                # stacked buffer, then run the backward carry over it.
-                revs0 = jnp.zeros((n_hops,) + pm_.shape, pm_.dtype)
-
-                def fwd_body(k, st):
-                    acc_, revs_, src_ = st
-                    acc_, ar, src_ = fwd_hop(k, acc_, src_)
-                    revs_ = lax.dynamic_update_slice_in_dim(
-                        revs_, ar[None], k - 1, axis=0
-                    )
-                    return acc_, revs_, src_
-
-                acc, revs_arr, _ = lax.fori_loop(
-                    1, n_hops + 1, fwd_body, (acc, revs0, pm_)
-                )
-
-                def bwd_body(t, carry_):
-                    k = n_hops - t  # k = n_hops .. 1
-                    return lax.ppermute(
-                        carry_ + lax.dynamic_index_in_dim(revs_arr, k - 1, 0, False),
-                        axis,
-                        bwd_perm,
-                    )
-
-                carry = lax.fori_loop(0, n_hops, bwd_body, carry)
-            return acc + carry
-
-        rows = lax.broadcasted_iota(jnp.int32, (shard, 1), 0) + my * shard
-        valid = rows < n_real if n_real < n_pad else None
-        new_pos, new_vel, new_acc = integrate_from_accum(
-            config.integrator, accum, pos_mass, vel, accel, dt, valid
-        )
-        return new_pos, new_vel, new_acc, step + 1
-
-    sharded = jax.shard_map(
-        local_step,
-        mesh=mesh,
-        in_specs=(P(axis, None), P(axis, None), P(axis, None), P(), P(), P()),
-        out_specs=(P(axis, None), P(axis, None), P(axis, None), P()),
+        # pallas_call outputs carry no varying-mesh-axis metadata; the
+        # specs above fully pin the shardings.
         check_vma=False,
     )
 
@@ -420,7 +174,7 @@ def make_grid2d_step(
     mesh: jax.sharding.Mesh,
     platform: str | None = None,
 ) -> Callable[[SimState, jax.Array, jax.Array], SimState]:
-    """2-D grid force decomposition (SURVEY §2.2's TP-analog, VERDICT r1 #8).
+    """2-D grid force decomposition (SURVEY §2.2's TP-analog).
 
     Devices form an (R, C) mesh; bodies are sharded over the flattened
     mesh (shard ``(r, c)`` owns global slice ``(r*C + c) * m .. + m``,
@@ -434,12 +188,7 @@ def make_grid2d_step(
 
     Per-step traffic per device ~ n/R + n/C + n/R vs the ring's ~n: a
     square mesh cuts wire bytes ~sqrt(D)/3.  Self-pairs inside the tile
-    form the diagonal segment ``src_col == tgt_row + (r - c) * m`` for
-    target rows in ``[c*m, (c+1)*m)`` only (derivation: equal global
-    indices force the source sub-shard q == r, valid for t in the c-th
-    piece of the segment) — the range restriction matters: the source set
-    concatenates non-adjacent global pieces, so the unrestricted diagonal
-    would alias one REAL pair per out-of-range target row.
+    add exactly zero (zero separation), so no diagonal mask is needed.
     """
     axes = tuple(mesh.axis_names)
     if len(axes) != 2:
@@ -450,13 +199,7 @@ def make_grid2d_step(
     if n_pad % d != 0:
         raise ValueError(f"n_pad={n_pad} not divisible by mesh size {d}")
     m = n_pad // d
-    seg_t = n_pad // nrows  # target segment length
-    seg_s = n_pad // ncols  # source set length
     backend, interpret = resolve_backend(config, platform)
-    bt = fit_block(seg_t, config.block_target)
-    bs = fit_block(seg_s, config.block_source)
-    mode = "fast" if config.force_mode == "sym" else config.force_mode
-    fast = mode == "fast"
 
     def local_step(pos_mass, vel, accel, step, dt, G):
         r = lax.axis_index(ax_r)
@@ -465,29 +208,13 @@ def make_grid2d_step(
         def accum(pm_):
             tgt_seg = lax.all_gather(pm_, ax_c, axis=0, tiled=True)  # (seg_t, 4)
             src_set = lax.all_gather(pm_, ax_r, axis=0, tiled=True)  # (seg_s, 4)
-            diag = (r - c) * m
-            lo, hi = c * m, (c + 1) * m  # target rows with true self-pairs
             srcT = src_transposed(src_set, G)
             if backend == "pallas":
-                src10 = src_limbs(src_set, G) if fast else None
                 part = accel_pallas(
-                    tgt_seg,
-                    srcT,
-                    src10,
-                    diag,
-                    eps2=config.eps2,
-                    block_target=bt,
-                    block_source=bs,
-                    mode=mode,
-                    interpret=interpret,
-                    diag_lo=lo,
-                    diag_hi=hi,
-                    static_diag=None,  # offset depends on axis_index (traced)
+                    tgt_seg, srcT, eps2=config.eps2, interpret=interpret
                 )
             else:
-                part = accel_partial(
-                    tgt_seg, srcT, diag, eps2=config.eps2, diag_lo=lo, diag_hi=hi
-                )
+                part = accel_partial(tgt_seg, srcT, eps2=config.eps2)
             # -> exactly shard (r, c)'s rows, (m, 4)
             return lax.psum_scatter(part, ax_c, scatter_dimension=0, tiled=True)
 
@@ -550,13 +277,12 @@ def make_pm_sharded_step(
     n_pad: int,
     n_real: int,
     mesh: jax.sharding.Mesh,
-    platform: str | None = None,
 ) -> Callable[[SimState, jax.Array, jax.Array], SimState]:
     """Sharded particle-mesh step (``config.method == "pm"``).
 
     Each chip CIC-deposits its resident body shard onto the full
     ``(M, M, M)`` mass grid, the grids reduce with one ``psum`` over the
-    mesh (4·M³ bytes of ICI — independent of N), every chip solves the
+    mesh (4·M³ bytes — independent of N), every chip solves the
     identical FFT Poisson problem (replicated compute, no distributed
     FFT needed at these grid sizes), and gathers forces for its own shard.
     The box is the global bounding cube via ``pmin``/``pmax`` of per-shard
@@ -677,12 +403,11 @@ def make_p3m_sharded_step(
     n_pad: int,
     n_real: int,
     mesh: jax.sharding.Mesh,
-    platform: str | None = None,
 ) -> Callable[[SimState, jax.Array, jax.Array], SimState]:
     """Sharded P3M step (``config.method == "p3m"``, ops/p3m.py) — the
     DISTRIBUTED decomposition: per-chip live buffers are O(N/D + halo),
-    never O(N) (round 5; the round-4 path all-gathered the full array
-    and ran a replicated global sort, capping the box at one chip's HBM).
+    never O(N) (an all-gather of the full array plus a replicated global
+    sort would cap the box at one chip's memory).
 
     Schedule per force evaluation (parallel/exchange.py):
 
@@ -691,10 +416,9 @@ def make_p3m_sharded_step(
        binary search (tiny psums), ring exchange into sorted residency —
        each chip ends up holding EXACTLY the ``sorted[my/D]`` slice the
        old replicated sort produced, without materializing N rows.
-    2. Long range: the PM pattern over the slice — tile deposit (MXU
-       kernels on the Pallas backend, ops/mesh_pallas.py), one grid
-       ``psum`` (4·M³ bytes of ICI, independent of N), replicated FFT
-       solve, tile gather.
+    2. Long range: the PM pattern over the slice — TSC deposit, one grid
+       ``psum`` (4·M³ bytes, independent of N), replicated FFT solve, TSC
+       gather.
     3. Short range: per-chip neighbor selection over the all-gathered
        per-tile AABBs (O(nb) metadata), then a HALO of remote source
        tiles (static capacity ``config.p3m_halo_tiles``) filled by a
@@ -712,9 +436,8 @@ def make_p3m_sharded_step(
 
     The reference analog generalized here is the shared-memory source
     tile loop (``nbody3d.js:255-272``) — tiles of bodies streaming past
-    resident targets, now over ICI with only the needed tiles kept.
+    resident targets, now across devices with only the needed tiles kept.
     """
-    from nbody3d_tpu.ops import mesh_pallas as mp
     from nbody3d_tpu.ops import p3m as p3m_ops
     from nbody3d_tpu.ops import pm as pm_ops
     from nbody3d_tpu.ops.morton import morton_keys_box
@@ -744,16 +467,6 @@ def make_p3m_sharded_step(
     heavy_k = min(config.p3m_heavy_k, n_pad)
     sigma_cells = float(config.p3m_sigma_cells)
     rcut_sigmas = float(config.p3m_rcut_sigmas)
-    # Kernel dispatch follows the resolved backend (interpret=True runs
-    # the Pallas kernels through the interpreter on the virtual CPU mesh
-    # — the dryrun/test coverage path).  grid ≤ 192 is the VMEM-residency
-    # bound of the tile mesh kernels (component-split gather above 128).
-    backend, interpret = resolve_backend(config, platform)
-    use_pallas = backend == "pallas"
-    # block % 128: the tile kernels' (4, block) operand blocks need a
-    # lane-multiple block (mesh_pallas layout rules).
-    use_tiles = use_pallas and grid <= 192 and block % 128 == 0
-    rt = min(mp.default_rt(tiles_per), tiles_per)
     periodic = config.boundary == "periodic"
     boxL = float(config.box_size)
     if periodic:
@@ -865,73 +578,30 @@ def make_p3m_sharded_step(
             # interactions are fully covered by the exact pairs below).
             ps = jnp.concatenate([pos_s, mass_s[:, None]], axis=1)
 
-            # Long range (PM pattern, TSC order) over this chip's SORTED
-            # slice: the slice is Morton-tiled, so the MXU tile kernels
-            # (ops/mesh_pallas.py) replace the XLA deposit/gather on the
-            # Pallas backend; deposits from all chips meet in one grid psum
-            # either way.  Wire-neutral vs the old resident-rows layout: the
-            # all-gather of per-row sorted values below already existed for
-            # the short-range pass, and now carries mesh+short together.
+            # Long range (PM pattern, TSC order) over this chip's sorted
+            # slice; deposits from all chips meet in one grid psum.
             from nbody3d_tpu.ops.ewald import spectral_accel_grids, wrap_box
 
             def mesh_leg(pos_leg):
                 # One full deposit → psum → solve → gather leg at these
-                # (periodic: pre-wrapped) positions, on the tile kernels
-                # or the XLA forms per the resolved backend.  Periodic
-                # tiles are the wrap-aware form: halo-padded deposit
-                # folded onto the torus BEFORE the grid psum (fold is
-                # linear, and folding first keeps the psum at G³), halo-
-                # prefilled gather, mod-grid repair.
-                c, w, f = p3m_ops._tsc_cells(pos_leg, lo, h, grid, periodic)
-                if use_tiles:
-                    corners, validp, dirty = mp.tile_corners(
-                        c, block, grid, periodic=periodic
-                    )
-                    if periodic:
-                        rho = mp.fold_wrap_xy(
-                            mp.deposit_tiles(
-                                mp.pad_cells(c), f, mass_s, corners, grid,
-                                block, interpret=interpret, zmod=grid,
-                            ),
-                            grid,
-                        )
-                    else:
-                        rho = mp.deposit_tiles(c, f, mass_s, corners, grid,
-                                               block, interpret=interpret)
-                    rho = mp.repair_deposit(rho, c, w, mass_s, validp, dirty,
-                                            rt, grid, block,
-                                            periodic=periodic)
-                else:
-                    rho = p3m_ops.tsc_deposit(pos_leg, mass_s, lo, h, grid,
-                                              periodic)
+                # (periodic: pre-wrapped) positions.
+                c, w, _ = p3m_ops._tsc_cells(pos_leg, lo, h, grid, periodic)
+                rho = p3m_ops.tsc_deposit(pos_leg, mass_s, lo, h, grid,
+                                          periodic)
                 rho = lax.psum(rho, axis)
                 if periodic:
                     grids = spectral_accel_grids(rho, L, sigma, order=3)
                 else:
                     grids = p3m_ops.solve_accel_long(rho, h, eps2, sigma,
                                                      order=3)
-                if use_tiles:
-                    if periodic:
-                        acc_leg = mp.gather_tiles(
-                            mp.pad_wrap_xy(grids, grid), mp.pad_cells(c), f,
-                            corners, grid, block, interpret=interpret,
-                            zmod=grid,
-                        )
-                    else:
-                        acc_leg = mp.gather_tiles(grids, c, f, corners, grid,
-                                                  block, interpret=interpret)
-                    return mp.repair_gather(acc_leg, grids, c, w, validp,
-                                            dirty, rt, grid, block,
-                                            periodic=periodic)
                 return p3m_ops.tsc_gather(grids, c, w, grid)
 
             acc_m = mesh_leg(pos_s)
             if periodic and config.mesh_interlace:
                 # Hockney-Eastwood force-average: a second full mesh leg
-                # with the grid offset by half a cell (the shifted leg
-                # re-derives its own tile validity, so the tile kernels
-                # serve it too); grid-locked odd-image alias errors flip
-                # sign and cancel (see ops/p3m.py).
+                # with the grid offset by half a cell; grid-locked
+                # odd-image alias errors flip sign and cancel (see
+                # ops/p3m.py).
                 acc_m = 0.5 * (acc_m + mesh_leg(wrap_box(pos_s + 0.5 * h, L)))
             # Net-force projection (see accel_p3m): momentum-restoring frame
             # correction for the deconv-amplified FFT noise; reductions span
@@ -1010,13 +680,9 @@ def make_p3m_sharded_step(
                 cross, tiles_per + slot_of[nbr_idx], nbr_idx - my * tiles_per
             )
             nbr_local = jnp.where(final_mask > 0, nbr_local, 0)
-            # The resolved backend picks the block-sparse Pallas kernel or
-            # the jnp form — identical pair sets either way.
             acc_s_mine = p3m_ops.short_range_tiles(
                 ps_src, nbr_local, 0, tiles_per, eps2, sigma, rcut, block,
-                nbr_mask=final_mask,
-                backend="pallas" if use_pallas else "jnp",
-                interpret=interpret, box=L if periodic else None,
+                nbr_mask=final_mask, box=L if periodic else None,
             )
             # Results ride the ring back to their engine rows by gid —
             # the O(N/D) replacement for the old full all-gather +
@@ -1035,17 +701,18 @@ def make_p3m_sharded_step(
                 inv_s = lax.rsqrt(r2 + jnp.float32(eps2))
                 wgt = inv_s * inv_s * inv_s * (r2 > 0)
                 a_from_heavy = jnp.einsum(
-                    "nk,nkc->nc", wgt * hp[None, :, 3], dvec
+                    "nk,nkc->nc", wgt * hp[None, :, 3], dvec, precision=lax.Precision.HIGHEST
                 )
                 a_on_heavy = lax.psum(
                     -jnp.einsum(
-                        "nk,nkc->kc", wgt * pos_mass[:, 3][:, None], dvec
+                        "nk,nkc->kc", wgt * pos_mass[:, 3][:, None], dvec,
+                        precision=lax.Precision.HIGHEST,
                     ),
                     axis,
                 )
                 match = gid[:, None] == hgid[None, :]  # (shard, K)
                 repl = jnp.einsum(
-                    "rk,kc->rc", match.astype(jnp.float32), a_on_heavy
+                    "rk,kc->rc", match.astype(jnp.float32), a_on_heavy, precision=lax.Precision.HIGHEST
                 )
                 acc3 = jnp.where(
                     jnp.any(match, axis=1)[:, None], repl, acc3 + a_from_heavy
@@ -1089,7 +756,7 @@ def make_sharded_diagnostics(
     mesh: jax.sharding.Mesh,
 ) -> Callable[[SimState, jax.Array], diag.Diagnostics]:
     """Energy/momentum diagnostics computed shard-locally and reduced with
-    ``psum`` over ICI (SURVEY §5.8) — potential energy covers the full pair
+    ``psum`` (SURVEY §5.8) — potential energy covers the full pair
     set via an all-gather of positions (O(N) traffic, O(N^2/D) compute per
     chip).  Works on 1-D and 2-D meshes alike: bodies are sharded over the
     flattened mesh, so the gather/reduce just spans every axis."""

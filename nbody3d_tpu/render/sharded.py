@@ -1,20 +1,16 @@
-"""Sharded rendering: rasterize where the data lives (VERDICT r4 #7).
+"""Sharded rendering: rasterize where the data lives.
 
 The reference's draw pass consumes the very buffers physics owns
-(``nbody3d.js:482-487``) — the multi-chip analog is to never gather
-particle state for a frame: under ``shard_map`` each chip projects and
-rasterizes ITS resident shard into full-frame (depth, rgb) f32 planes
-with the tiered Pallas resolve (render/pallas_resolve.py), and the
-planes merge with a lexicographic min across the mesh — two ``pmin``
-collectives of 4 B/px each (8 + 8 MB at 1080p over ICI), independent
-of N.  The min is associative and order-free, so the merged frame is
-BIT-identical to rasterizing the gathered state on one chip
-(tests/test_render_sharded.py).
-
-Splats the device tiers cannot cover (r > 64 px — only when
-``max_radius_px`` is raised past 64) are counted and SKIPPED in the
-sharded path (their host fallback would need per-body records off some
-chip); the count is returned so callers can surface it.
+(``nbody3d.js:482-487``).  The multi-device analog never gathers particle
+state for a frame: under ``shard_map`` each device projects its resident
+shard and scatter-mins its small splats into a full-frame depth16|rgb565
+buffer, exactly as the single-device resolve does
+(:func:`nbody3d_tpu.render.rasterize.device_resolve_begin`), and the
+buffers merge with one ``pmin`` — 4 B/px, independent of N.  Large splats
+(r >= 2 px) stay the radius-sorted prefix of each shard; the host fetches
+only those rows and stamps them as the single-device resolve does.  Min is
+associative and order-free, so the frame equals the single-device device
+resolve of the gathered state bit for bit (tests/test_render_sharded.py).
 """
 
 from __future__ import annotations
@@ -23,11 +19,15 @@ import functools
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax import lax
 from jax.sharding import PartitionSpec as P
 
-from nbody3d_tpu.render.pallas_resolve import _RGB_MISS, resolve_all_pallas
-from nbody3d_tpu.render.rasterize import _project_f32
+from nbody3d_tpu.render.rasterize import (
+    _project_f32,
+    _scatter_resolve,
+    composite_device_frame,
+)
 
 
 def make_sharded_render(
@@ -41,15 +41,11 @@ def make_sharded_render(
     max_radius_px: int = 64,
     color_mode: str = "magnitude",
     axis=None,
-    interpret: bool | None = None,
 ):
-    """Build ``render(pos_mass, vel, vp, f, campos) -> (rgb_u32 (H, W),
-    depth (H, W), n_uncovered)`` over body-sharded state arrays.
-
-    ``axis`` defaults to all mesh axes (the flattened sharding every
-    strategy uses); ``interpret`` defaults to True off-TPU (the virtual
-    CPU mesh).  Outputs are replicated — fetch once from any chip.
-    """
+    """Build ``render(pos_mass, vel, vp, f, campos) -> handle`` over
+    body-sharded state arrays; :func:`sharded_frame_image` turns the
+    handle into the image.  ``axis`` defaults to all mesh axes (the
+    flattened sharding every strategy uses)."""
     axes = tuple(mesh.axis_names)
     if axis is None:
         axis = axes if len(axes) > 1 else axes[0]
@@ -59,8 +55,6 @@ def make_sharded_render(
     if n_pad % d != 0:
         raise ValueError(f"n_pad={n_pad} not divisible by mesh size {d}")
     shard = n_pad // d
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
 
     def local(pos_mass, vel, vp, f, campos):
         my = jnp.int32(0)
@@ -72,57 +66,56 @@ def make_sharded_render(
             width, height, max_radius_px, color_mode,
         )
         visible = visible & (rows < n_real)
-        rgb_u32, dplane, n_host = resolve_all_pallas(
-            cx, cy, depth_bits, rgb24, r, visible,
-            width=width, height=height, interpret=interpret,
+        order = jnp.argsort(jnp.where(visible, -r, jnp.inf), stable=True)
+        splats = tuple(a[order] for a in (cx, cy, depth_bits, rgb24, r))
+        buf, n_large = _scatter_resolve(
+            *splats, jnp.sum(visible), width=width, height=height
         )
-        # Lexicographic (depth, rgb) min across the mesh: depth first,
-        # then rgb among the chips that hold the winning depth.
-        c = jnp.where(
-            rgb_u32 == jnp.uint32(0xFFFFFFFF),
-            jnp.float32(_RGB_MISS),
-            rgb_u32.astype(jnp.float32),
-        )
-        dmin = lax.pmin(dplane, axis)
-        cmin = lax.pmin(
-            jnp.where(dplane == dmin, c, jnp.float32(_RGB_MISS)), axis
-        )
-        rgb_out = jnp.where(
-            cmin >= _RGB_MISS, jnp.uint32(0xFFFFFFFF), cmin.astype(jnp.uint32)
-        )
-        return rgb_out, dmin, lax.psum(n_host, axis)
+        return lax.pmin(buf, axis), splats, n_large[None]
 
-    spec = P(axis, None)
-    fn = jax.shard_map(
+    spec = P(axis)
+    fn = jax.jit(jax.shard_map(
         local,
         mesh=mesh,
-        in_specs=(spec, spec, P(), P(), P()),
-        out_specs=(P(), P(), P()),
+        in_specs=(P(axis, None), P(axis, None), P(), P(), P()),
+        out_specs=(P(), (spec,) * 5, spec),
         check_vma=False,
-    )
+    ))
 
     @functools.wraps(fn)
     def render(pos_mass, vel, vp, f, campos):
-        return fn(
+        buf, splats, n_large = fn(
             pos_mass, vel,
             jnp.asarray(vp, jnp.float32), jnp.float32(f),
             jnp.asarray(campos, jnp.float32),
         )
+        return {"buf": buf, "splats": splats, "n_large": n_large,
+                "size": (width, height)}
 
     return render
 
 
-def sharded_frame_image(rgb_u32, background=(0, 0, 0)):
-    """Host assembly of a sharded render's rgb plane into (H, W, 3) u8."""
-    import numpy as np
+def sharded_frame_image(handle, background=(0, 0, 0)):
+    """Host half of a sharded frame: fetch the merged buffer and each
+    shard's large-splat prefix, stamp, decode to (H, W, 3) uint8."""
+    width, height = handle["size"]
+    counts = np.asarray(jax.device_get(handle["n_large"]))
 
-    rgb = np.asarray(jax.device_get(rgb_u32))
-    h, w = rgb.shape
-    img = np.empty((h, w, 3), np.uint8)
-    img[:] = np.asarray(background, np.uint8)
-    hit = rgb != np.uint32(0xFFFFFFFF)
-    v = rgb[hit]
-    img[hit, 0] = (v >> 16) & 0xFF
-    img[hit, 1] = (v >> 8) & 0xFF
-    img[hit, 2] = v & 0xFF
-    return img
+    def shards(a):  # per-device pieces in row order
+        return [sh.data for sh in sorted(
+            a.addressable_shards, key=lambda sh: sh.index[0].start or 0
+        )]
+
+    per_field = [shards(a) for a in handle["splats"]]
+    parts = jax.device_get([
+        tuple(f[s][: int(k)] for f in per_field)
+        for s, k in enumerate(counts) if k
+    ])
+    large = tuple(
+        np.concatenate([p[i] for p in parts]) if parts
+        else np.zeros(0, np.int32)
+        for i in range(5)
+    )
+    return composite_device_frame(
+        jax.device_get(handle["buf"]), large, width, height, background
+    )

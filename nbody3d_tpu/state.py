@@ -6,9 +6,9 @@ bytes each — AoS float32 vec4s ``(x,y,z,mass)``, ``(vx,vy,vz,0)``,
 buffer is created but never host-initialized, so the first Verlet kick uses
 ``a_old = 0`` (``nbody3d.js:195-199``; SURVEY §2.3).
 
-The TPU-native equivalent is an immutable pytree of ``(N_pad, 4)`` float32
-arrays that is *donated* across steps so it stays HBM-resident under
-``jax.lax.scan`` (BASELINE north star).  ``N_pad`` is the body count rounded
+The equivalent here is an immutable pytree of ``(N_pad, 4)`` float32 arrays
+that is *donated* across steps so it stays in device memory under
+``jax.lax.scan``.  ``N_pad`` is the body count rounded
 up to the kernel block size; padding bodies have mass 0 (force-neutral as
 sources) and are index-masked as targets so they stay frozen — reproducing
 the ``index < nBodies`` guards at ``nbody3d.js:257,265``.

@@ -183,7 +183,7 @@ def peek_config(path: str) -> SimConfig | None:
             return SimConfig.from_json(bytes(z["config_json"]).decode())
     import os
 
-    import orbax.checkpoint as ocp
+    ocp = _orbax()
 
     with ocp.PyTreeCheckpointer() as ckptr:
         # Partial restore: only the config entry, not the body arrays
@@ -200,10 +200,21 @@ def peek_config(path: str) -> SimConfig | None:
 
 
 # -------------------------------------------------------------------- orbax
+def _orbax():
+    try:
+        import orbax.checkpoint as ocp
+    except ImportError as e:
+        raise RuntimeError(
+            "orbax checkpoint directories need orbax-checkpoint "
+            "(pip install orbax-checkpoint); .npz and .json need nothing"
+        ) from e
+    return ocp
+
+
 def save_orbax(path: str, sim, camera: Camera | None = None) -> None:
     import os
 
-    import orbax.checkpoint as ocp
+    ocp = _orbax()
 
     pos_mass, vel, accel = _sim_arrays(sim)
     if camera is None:
@@ -225,7 +236,7 @@ def save_orbax(path: str, sim, camera: Camera | None = None) -> None:
 def load_orbax(path: str, config: SimConfig | None = None, *, mesh=None, platform=None):
     import os
 
-    import orbax.checkpoint as ocp
+    ocp = _orbax()
 
     from nbody3d_tpu.engine import Simulation
 

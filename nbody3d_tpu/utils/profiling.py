@@ -3,7 +3,7 @@
 The reference instruments with WebGPU timestamp queries wrapped in a
 state-machine ``TimingHelper`` (``util.js:297-423``) plus
 ``performance.now()`` host timing, all EMA-smoothed with filterStrength=10
-(``nbody3d.js:434,441-443``).  On TPU the analogs are wall-clock timing
+(``nbody3d.js:434,441-443``).  Here the analogs are wall-clock timing
 around blocked ``lax.scan`` chunks (device timing via
 ``jax.profiler.trace`` when a deep dive is needed), the derived metrics the
 HUD showed (fps -> steps/s) plus the one that matters for an O(N^2) code:

@@ -245,7 +245,7 @@ class LiveViewer:
                 self._fps += (1e3 / self._frame_ms - self._fps) / filt
             self._last_frame_t = t0
             if not self.sim.paused:
-                # PIPELINED frame (round 5): dispatch the frame's device
+                # PIPELINED frame: dispatch the frame's device
                 # work against the current state, dispatch the next
                 # physics chunk (donates that state), then do the
                 # frame's host work (fetch/composite/JPEG) WHILE the
@@ -289,8 +289,6 @@ class LiveViewer:
                 time.sleep(0.05)
 
     def _render_frame(self) -> None:
-        from PIL import Image
-
         from nbody3d_tpu.utils.camera import Camera
 
         # Snapshot the camera pose under the lock, render OUTSIDE it —
@@ -304,7 +302,13 @@ class LiveViewer:
         self._publish_jpeg(img)
 
     def _publish_jpeg(self, img) -> None:
-        from PIL import Image
+        try:
+            from PIL import Image
+        except ImportError as e:
+            raise RuntimeError(
+                "the live viewer encodes JPEG frames with Pillow "
+                "(pip install pillow)"
+            ) from e
 
         buf = io.BytesIO()
         Image.fromarray(img, mode="RGB").save(buf, "JPEG", quality=self.quality)

@@ -123,7 +123,7 @@ def test_cli_run_analyze_every(tmp_path, capsys):
     assert main([
         "run", "--preset", "plummer", "--n", "256", "--steps", "4",
         "--log-every", "2", "--analyze-every", "2", "--outdir", str(outdir),
-        "--backend", "jnp", "--block-target", "32", "--block-source", "32",
+        "--backend", "jnp",
     ]) == 0
     recs = [
         json.loads(l)
@@ -141,7 +141,7 @@ def test_cli_analyze(tmp_path, capsys):
     assert main([
         "run", "--preset", "plummer", "--n", "512", "--steps", "2",
         "--log-every", "2", "--outdir", str(outdir),
-        "--backend", "jnp", "--block-target", "32", "--block-source", "32",
+        "--backend", "jnp",
     ]) == 0
     capsys.readouterr()
     csv = tmp_path / "profile.csv"
@@ -250,7 +250,7 @@ def test_cli_analyze_power_spectrum(tmp_path, capsys):
     assert main([
         "run", "--preset", "plummer", "--n", "512", "--steps", "2",
         "--log-every", "2", "--outdir", str(outdir),
-        "--backend", "jnp", "--block-target", "32", "--block-source", "32",
+        "--backend", "jnp",
     ]) == 0
     capsys.readouterr()
     csv = tmp_path / "ps.csv"
@@ -370,7 +370,7 @@ def test_cli_analyze_fof(tmp_path, capsys):
     assert main([
         "run", "--preset", "two-galaxy", "--n", "1026", "--steps", "2",
         "--log-every", "2", "--outdir", str(outdir),
-        "--backend", "jnp", "--block-target", "32", "--block-source", "32",
+        "--backend", "jnp",
     ]) == 0
     capsys.readouterr()
     rc = main([
@@ -458,7 +458,7 @@ def test_cli_analyze_fof_stream_flag(tmp_path, capsys):
     assert main([
         "run", "--preset", "plummer", "--n", "256", "--steps", "1",
         "--log-every", "1", "--outdir", str(outdir),
-        "--backend", "jnp", "--block-target", "32", "--block-source", "32",
+        "--backend", "jnp",
     ]) == 0
     capsys.readouterr()
     rc = main([

@@ -12,7 +12,7 @@ from nbody3d_tpu.models.sphere import uniform_sphere
 
 
 def small_sim(n=64, **cfg_kw):
-    cfg = SimConfig(backend="jnp", block_target=32, block_source=32, **cfg_kw)
+    cfg = SimConfig(backend="jnp", **cfg_kw)
     pm, vel, target = uniform_sphere(n, rng=np.random.default_rng(0))
     return Simulation(cfg, pm, vel, camera_target=target, platform="cpu")
 
@@ -44,7 +44,7 @@ def test_json_roundtrip_restores_state(tmp_path):
     p0, v0, a0 = sim.arrays()
     path = tmp_path / "export.json"
     sim.save(str(path))
-    sim2 = Simulation.load(str(path), SimConfig(backend="jnp", block_target=32, block_source=32), platform="cpu")
+    sim2 = Simulation.load(str(path), SimConfig(backend="jnp"), platform="cpu")
     p1, v1, a1 = sim2.arrays()
     # float -> json decimal -> float32 roundtrip is exact for f32 values
     np.testing.assert_array_equal(p0, p1)
@@ -75,7 +75,7 @@ def test_reference_exported_file_loads(tmp_path):
     }
     path = tmp_path / "ref_export.json"
     path.write_text(json.dumps(ref_file))
-    sim = Simulation.load(str(path), SimConfig(backend="jnp", block_target=8, block_source=8), platform="cpu")
+    sim = Simulation.load(str(path), SimConfig(backend="jnp"), platform="cpu")
     assert sim.n_real == n
     assert np.isclose(sim.G, 1e-4)
     assert sim.step_count == 0
@@ -124,7 +124,7 @@ def test_cli_resume_keeps_saved_dt(tmp_path, capsys):
     cli_main([
         "run", "--preset", "uniform-sphere", "--n", "32", "--steps", "2",
         "--dt", "2e-4", "--log-every", "2", "--outdir", str(outdir),
-        "--backend", "jnp", "--block-target", "32", "--block-source", "32",
+        "--backend", "jnp",
     ])
     capsys.readouterr()
     # resume WITHOUT --dt: saved dt=2e-4 must survive
@@ -216,3 +216,44 @@ def test_native_and_python_writers_interchange(tmp_path):
     b_py = np.asarray(data["bodies"], np.float32).reshape(-1, 4)
     b_fast, _, _, _, _, _, _ = ck.parse_reference_json(str(p))
     np.testing.assert_array_equal(b_py, b_fast)
+
+
+# Options that older checkpoints carry and this version no longer has.
+_OLD_KEYS = {
+    "force_mode": "sym", "fuse_integrate": False, "fuse_epilogue": True,
+    "block_target": 2048, "block_source": 2048, "morton_every": 64,
+    "grad_precision": "precise",
+}
+
+
+def test_old_config_json_drops_removed_options():
+    d = json.loads(SimConfig(backend="jnp", dt=2e-4).to_json())
+    d.update(_OLD_KEYS, strategy="ring")
+    cfg = SimConfig.from_json(json.dumps(d))
+    assert cfg == SimConfig(backend="jnp", dt=2e-4)
+
+
+@pytest.mark.parametrize("peek", [False, True])
+def test_old_npz_checkpoint_loads(tmp_path, peek):
+    """An npz written when the config had the removed kernel options still
+    loads (and peeks) with the state bit-equal."""
+    from nbody3d_tpu.utils.checkpoint import peek_config
+
+    sim = small_sim()
+    sim.step(2)
+    path = tmp_path / "new.npz"
+    sim.save(str(path))
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files}
+    d = json.loads(bytes(arrays["config_json"]).decode())
+    d.update(_OLD_KEYS)
+    arrays["config_json"] = np.bytes_(json.dumps(d).encode())
+    old = tmp_path / "old.npz"
+    np.savez(old, **arrays)
+    if peek:
+        assert peek_config(str(old)).backend == "jnp"
+        return
+    sim2 = Simulation.load(str(old), platform="cpu")
+    for a, b in zip(sim.arrays(), sim2.arrays()):
+        np.testing.assert_array_equal(a, b)
+    assert sim2.step_count == 2

@@ -22,7 +22,7 @@ def test_bench_json_line(capsys):
     rc = run_cli([
         "bench", "--preset", "uniform-sphere", "--n", "128",
         "--steps", "4", "--warmup-steps", "1", "--chunk", "2",
-        "--backend", "jnp", "--block-target", "32", "--block-source", "32",
+        "--backend", "jnp",
     ])
     assert rc == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
@@ -37,7 +37,7 @@ def test_run_with_checkpoint_and_render(tmp_path, capsys):
         "run", "--preset", "uniform-sphere", "--n", "64", "--steps", "4",
         "--log-every", "2", "--checkpoint-every", "2", "--render-every", "2",
         "--diagnostics", "--outdir", str(outdir),
-        "--backend", "jnp", "--block-target", "32", "--block-source", "32",
+        "--backend", "jnp",
     ])
     assert rc == 0
     files = {p.name for p in outdir.iterdir()}
@@ -54,7 +54,7 @@ def test_convert_roundtrip(tmp_path, capsys):
     run_cli([
         "run", "--preset", "uniform-sphere", "--n", "32", "--steps", "2",
         "--log-every", "2", "--outdir", str(outdir),
-        "--backend", "jnp", "--block-target", "32", "--block-source", "32",
+        "--backend", "jnp",
     ])
     npz = outdir / "final.npz"
     js = outdir / "conv.json"
@@ -71,7 +71,7 @@ def test_render_command(tmp_path, capsys):
     run_cli([
         "run", "--preset", "uniform-sphere", "--n", "32", "--steps", "1",
         "--log-every", "1", "--outdir", str(outdir),
-        "--backend", "jnp", "--block-target", "32", "--block-source", "32",
+        "--backend", "jnp",
     ])
     png = tmp_path / "frame.png"
     rc = run_cli([
@@ -91,7 +91,7 @@ def test_metrics_jsonl_and_animate(tmp_path, capsys):
     run_cli([
         "run", "--preset", "uniform-sphere", "--n", "32", "--steps", "4",
         "--log-every", "2", "--outdir", str(outdir), "--metrics", str(metrics),
-        "--backend", "jnp", "--block-target", "32", "--block-source", "32",
+        "--backend", "jnp",
     ])
     lines = [json.loads(l) for l in metrics.read_text().splitlines()]
     assert len(lines) == 2  # one record per scan chunk
@@ -105,7 +105,7 @@ def test_metrics_jsonl_and_animate(tmp_path, capsys):
         "animate", str(outdir / "final.npz"), "--frames", "3",
         "--orbit-degrees", "90", "--width", "48", "--height", "32",
         "--outdir", str(frames), "--video", str(video), "--fps", "10",
-        "--backend", "jnp", "--block-target", "32", "--block-source", "32",
+        "--backend", "jnp",
     ])
     assert rc == 0
     assert len(list(frames.glob("frame_*.png"))) == 3
@@ -123,7 +123,7 @@ def test_reference_random_flags(tmp_path, capsys):
         "run", "--preset", "reference-random", "--num-galaxies", "3",
         "--min-bodies", "10", "--max-bodies", "20", "--steps", "1",
         "--log-every", "1", "--outdir", str(outdir),
-        "--backend", "jnp", "--block-target", "32", "--block-source", "32",
+        "--backend", "jnp",
     ])
     assert rc == 0
     out = capsys.readouterr().out
@@ -141,7 +141,7 @@ def test_multi_device_run(tmp_path, capsys):
         "run", "--preset", "uniform-sphere", "--n", "64", "--steps", "2",
         "--log-every", "2", "--outdir", str(outdir), "--devices", "2",
         "--strategy", "ring", "--backend", "jnp",
-        "--block-target", "32", "--block-source", "32", "--diagnostics",
+        "--diagnostics",
     ])
     assert rc == 0
     out = capsys.readouterr().out
@@ -154,7 +154,7 @@ def test_log_slider_semantics(capsys):
     rc = run_cli([
         "bench", "--preset", "uniform-sphere", "--n", "32", "--steps", "2",
         "--warmup-steps", "1", "--chunk", "2", "--log-dt", "-4", "--log-G", "-4",
-        "--backend", "jnp", "--block-target", "32", "--block-source", "32",
+        "--backend", "jnp",
     ])
     assert rc == 0
 
@@ -166,7 +166,7 @@ def test_resumed_checkpoint_strategy_drives_mesh_shape(tmp_path, capsys):
     rc = run_cli([
         "run", "--preset", "uniform-sphere", "--n", "64", "--steps", "2",
         "--log-every", "2", "--outdir", str(outdir),
-        "--backend", "jnp", "--block-target", "8", "--block-source", "8",
+        "--backend", "jnp",
         "--devices", "8", "--strategy", "2d",
     ])
     assert rc == 0
@@ -183,7 +183,7 @@ def test_run_yoshida4_integrator(tmp_path, capsys):
         "run", "--preset", "uniform-sphere", "--n", "64", "--steps", "3",
         "--integrator", "yoshida4", "--log-every", "3", "--diagnostics",
         "--outdir", str(tmp_path / "out"),
-        "--backend", "jnp", "--block-target", "32", "--block-source", "32",
+        "--backend", "jnp",
     ])
     assert rc == 0
     text = capsys.readouterr().out

@@ -120,7 +120,7 @@ def test_preset_rounds_to_cube():
 def test_eh98_transfer_shape():
     """EH98 no-wiggle transfer function sanity: T -> 1 at large scales,
     monotonically suppressed at small scales, and the small-scale
-    asymptote falls like ~ln(q)/q^2 (VERDICT r5 #8)."""
+    asymptote falls like ~ln(q)/q^2."""
     from nbody3d_tpu.models.cosmo import eh98_transfer
 
     k = np.logspace(-4, 2, 200)  # h/Mpc

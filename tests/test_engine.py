@@ -10,7 +10,7 @@ from nbody3d_tpu.state import pad_count
 
 
 def make_sim(n=100, **cfg_kw):
-    cfg = SimConfig(backend="jnp", block_target=32, block_source=64, **cfg_kw)
+    cfg = SimConfig(backend="jnp", **cfg_kw)
     pm, vel, target = uniform_sphere(n, rng=np.random.default_rng(0))
     return Simulation(cfg, pm, vel, camera_target=target, platform="cpu")
 
@@ -24,20 +24,21 @@ def test_pad_count():
 
 
 def test_engine_pads_to_granule():
-    from nbody3d_tpu.config import SimConfig
-    from nbody3d_tpu.engine import Simulation
-    from nbody3d_tpu.ops.step import PAD_GRANULE
+    from nbody3d_tpu.ops.pallas_force import PAD_MULTIPLE
 
     # jnp oracle needs no block alignment: small granule
     sim = make_sim(100)
     assert sim.n_real == 100
     assert sim.n_pad == 104
     assert sim.state.pos_mass.shape == (104, 4)
-    # the pallas kernel path pads to the full kernel granule
+    # the kernel path pads to whole kernel blocks
     sim2 = Simulation.from_preset(
-        "uniform-sphere", SimConfig(backend="pallas"), n=100, platform="cpu"
+        "uniform-sphere", SimConfig(backend="pallas_interpret"), n=100,
+        platform="cpu",
     )
-    assert sim2.n_pad == PAD_GRANULE
+    assert sim2.n_pad == PAD_MULTIPLE * -(-100 // PAD_MULTIPLE)
+    # the chunked plain path pads to whole 256-target chunks
+    assert make_sim(5000).n_pad == 5120
 
 
 def test_run_advances_steps_and_stats():
@@ -71,7 +72,7 @@ def test_pause_skips_stepping():
 def test_from_preset():
     sim = Simulation.from_preset(
         "uniform-sphere",
-        SimConfig(backend="jnp", block_target=32, block_source=32),
+        SimConfig(backend="jnp"),
         n=64,
         platform="cpu",
     )
@@ -138,7 +139,7 @@ def test_regenerate_carries_live_params_and_rerolls():
     from nbody3d_tpu.config import SimConfig
     from nbody3d_tpu.engine import Simulation
 
-    config = SimConfig(backend="jnp", block_target=32, block_source=32)
+    config = SimConfig(backend="jnp")
     sim = Simulation.from_preset("uniform-sphere", config, n=64)
     sim.G = 1e-2  # live slider move
     sim.dt = 2e-4
@@ -179,7 +180,7 @@ def test_run_async_matches_run():
     assert b.step_count == 10
 
 
-@pytest.mark.parametrize("resolve", ["auto", "pallas"])
+@pytest.mark.parametrize("resolve", ["auto", "device"])
 def test_render_begin_finish_matches_render_frame(resolve):
     """render_frame_begin/finish (the pipelined frame) produces the
     same image as the sequential render_frame — and the begin snapshot

@@ -120,7 +120,7 @@ def test_halo_truncation_preserves_momentum(mesh8):
 
 @pytest.mark.slow
 def test_memory_scales_as_n_over_d(mesh8):
-    """The round-5 acceptance property (VERDICT r4 #1): per-chip live
+    """The round-5 acceptance property: per-chip live
     buffers grow ~O(N/D), not O(N).  Measured via
     ``compiled.memory_analysis()``: the MARGINAL temp growth per added
     body must stay far below the round-4 replicated floor (measured

@@ -21,7 +21,7 @@ claims:
 
 These are schedule properties visible in the compiled HLO on the
 virtual CPU mesh (the CPU backend lowers collectives synchronously, but
-the dataflow graph it compiles is the same SPMD program the TPU
+the dataflow graph it compiles is the same SPMD program a GPU mesh
 schedules asynchronously).
 """
 

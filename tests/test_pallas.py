@@ -1,9 +1,9 @@
-"""Kernel equivalence: Pallas (interpret mode) vs jnp oracle (SURVEY §4.2).
+"""Direct-force kernel (ops/pallas_force.py) vs the jnp oracle.
 
-Near-bitwise comparison in the single-source-block regime (the analog of
-the reference's deterministic N <= 256 single-workgroup case, SURVEY §2.3);
-tolerance-based above, where summation order differs.  Fast mode (MXU bf16
-weights) is validated against its documented ~0.4% per-pair noise bound.
+The Triton-route kernel runs here in the Pallas interpreter; its GPU
+lowering is checked by lowering for CUDA without compiling.  Tolerances
+are f32 summation-order ones: the kernel sums each source tile's pair
+terms and then the tiles, in another order than ``accel_direct``.
 """
 
 import jax
@@ -11,19 +11,21 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nbody3d_tpu.ops.force_jnp import accel_direct
-from nbody3d_tpu.ops.integrate import verlet_step
+from nbody3d_tpu.ops.force_jnp import accel_direct, accel_partial
 from nbody3d_tpu.ops.pallas_force import (
+    BLOCK_S,
+    BLOCK_T,
+    MIN_PROGRAMS,
+    PAD_MULTIPLE,
     accel_pallas,
-    fused_step_pallas,
-    src_limbs,
+    direct_accel,
+    source_split,
     src_transposed,
 )
 from nbody3d_tpu.state import init_state
 
 EPS2 = 1e-4
 G = 1e-4
-DT = 1e-4
 
 
 def random_state(rng, n, n_pad=None):
@@ -36,117 +38,65 @@ def random_state(rng, n, n_pad=None):
     return init_state(pm, v, n_pad=n_pad)
 
 
+def _kernel(pm, g=G, **kw):
+    return np.asarray(accel_pallas(
+        pm, src_transposed(pm, g), eps2=EPS2, interpret=True, **kw
+    ))
+
+
 def test_force_only_matches_oracle(rng):
     s = random_state(rng, 512)
     oracle = accel_direct(s.pos_mass, G, eps2=EPS2)
-    srcT = src_transposed(s.pos_mass, G)
-    out = accel_pallas(
-        s.pos_mass, srcT, eps2=EPS2,
-        block_target=128, block_source=256, interpret=True,
-    )
-    np.testing.assert_allclose(np.asarray(out), np.asarray(oracle), rtol=1e-5, atol=1e-7)
-
-
-def test_fast_mode_within_noise_bound(rng):
-    """MXU bf16-weight mode: relative error bounded by bf16 weight rounding
-    (~0.4% per pair; much less after summation)."""
-    s = random_state(rng, 512)
-    oracle = np.asarray(accel_direct(s.pos_mass, G, eps2=EPS2))
-    srcT = src_transposed(s.pos_mass, G)
-    src10 = src_limbs(s.pos_mass, G)
-    out = np.asarray(
-        accel_pallas(
-            s.pos_mass, srcT, src10, eps2=EPS2,
-            block_target=128, block_source=256, mode="fast", interpret=True,
-        )
-    )
-    scale = np.abs(oracle).max()
-    assert np.abs(out - oracle).max() / scale < 5e-3
-    # and it should be much better than plain-bf16 positions would be
-    assert np.abs(out - oracle).max() / scale > 0  # sanity: not identical path
-
-
-def test_src_limbs_reconstruct():
-    """The three bf16 limbs reconstruct gm*x AND gm to f32 exactness."""
-    rng = np.random.default_rng(0)
-    pm = np.concatenate(
-        [rng.normal(scale=5, size=(64, 3)), rng.uniform(1, 50, (64, 1))], axis=1
-    ).astype(np.float32)
-    s10 = np.asarray(src_limbs(jnp.asarray(pm), G))
-    gm = (G * pm[:, 3:4]).astype(np.float32)
-    for c in range(3):
-        recon = s10[:, 3 * c] + s10[:, 3 * c + 1] + s10[:, 3 * c + 2]
-        np.testing.assert_allclose(recon, (gm[:, 0] * pm[:, c]), rtol=1e-6, atol=1e-30)
     np.testing.assert_allclose(
-        s10[:, 9] + s10[:, 10] + s10[:, 11], gm[:, 0], rtol=1e-7
+        _kernel(s.pos_mass), np.asarray(oracle), rtol=1e-5, atol=1e-7
     )
-    np.testing.assert_array_equal(s10[:, 12:], 0.0)
 
 
-def test_fast_mode_limbs_survive_mxu_bf16_rounding():
-    """Regression for the gm-column rounding bug: simulate the MXU's bf16
-    input rounding of EVERY src10 column in numpy and assert the
-    self/near-pair cancellation still holds with a huge (softening-floor)
-    weight.  Interpret mode cannot catch this — it runs dots in f32.
-    """
-    import ml_dtypes
-
-    def mxu_round(x):
-        return np.asarray(x, np.float32).astype(ml_dtypes.bfloat16).astype(np.float64)
-
-    rng = np.random.default_rng(3)
-    n = 64
-    pm = np.concatenate(
-        [rng.normal(scale=2.0, size=(n, 3)), rng.uniform(1, 50, (n, 1))], axis=1
-    ).astype(np.float32)
-    # plant a near-coincident pair (distance << softening length)
-    pm[1, :3] = pm[0, :3] + 1e-4
-    s10 = mxu_round(np.asarray(src_limbs(jnp.asarray(pm), G)))  # MXU input rounding
-    pos = pm[:, :3].astype(np.float64)
-    gm = (G * pm[:, 3]).astype(np.float64)
-    diff = pos[None, :, :] - pos[:, None, :]
-    d2 = (diff * diff).sum(-1) + EPS2
-    w = mxu_round(d2**-1.5)  # bf16-rounded weights (the documented noise)
-    # epilogue math on the rounded operands
-    A = w @ s10
-    s = A[:, 9] + A[:, 10] + A[:, 11]
-    acc = np.stack(
-        [
-            A[:, 0] + A[:, 1] + A[:, 2] - pos[:, 0] * s,
-            A[:, 3] + A[:, 4] + A[:, 5] - pos[:, 1] * s,
-            A[:, 6] + A[:, 7] + A[:, 8] - pos[:, 2] * s,
-        ],
-        axis=1,
-    )
-    oracle = np.einsum("ts,tsc->tc", gm[None, :] * d2**-1.5, diff)
-    scale = np.abs(oracle).max()
-    assert np.abs(acc - oracle).max() / scale < 6e-3
+@pytest.mark.parametrize(
+    "n,bt,bs,min_programs,g,heavy",
+    [
+        (64, 64, 16, 1, G, False),  # one block, one program
+        (100, 64, 16, 1, G, False),  # target and source padding
+        (300, 64, 16, MIN_PROGRAMS, G, False),  # split source loop
+        (300, 32, 32, 4, G, True),  # heavy body, partial split
+        (257, 16, 8, 64, 1.0, False),  # G = 1, odd count
+        (520, 128, 32, 1, 3e-2, True),  # wide blocks, no split
+        (130, 64, 64, 8, G, False),  # single source tile per split
+        (96, 32, 16, 1000, G, True),  # more splits than needed: capped
+    ],
+)
+def test_kernel_matches_oracle(rng, n, bt, bs, min_programs, g, heavy):
+    s = random_state(rng, n)
+    pm = s.pos_mass
+    if heavy:
+        pm = pm.at[0, 3].set(1e7)  # a central black hole
+    got = _kernel(pm, g, block_target=bt, block_source=bs,
+                  min_programs=min_programs)
+    ref = np.asarray(accel_direct(pm, g, eps2=EPS2))
+    scale = np.abs(ref).max()
+    assert got.shape == (n, 4)
+    np.testing.assert_array_equal(got[:, 3], 0.0)
+    np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-6 * scale)
 
 
 def test_single_source_block_vs_same_order_oracle(rng):
-    """One source block => identical lane-reduction order => agreement with a
-    same-shaped jnp computation to within compiler fma-fusion rounding
+    """One source tile => the kernel's per-pair arithmetic against a
+    same-shaped jnp computation, to within compiler fma-fusion rounding
     (a few ulps; the reference's own inverseSqrt is approximate)."""
-    n = 256
+    n = 64
     s = random_state(rng, n)
-    srcT = src_transposed(s.pos_mass, G)
-    out = accel_pallas(
-        s.pos_mass, srcT, eps2=EPS2,
-        block_target=n, block_source=n, interpret=True,
-    )
+    out = _kernel(s.pos_mass, block_target=n, block_source=n, min_programs=1)
     pos = s.pos_mass[:, :3]
     gm = jnp.float32(G) * s.pos_mass[:, 3]
     dx = pos[None, :, 0] - pos[:, None, 0]
     dy = pos[None, :, 1] - pos[:, None, 1]
     dz = pos[None, :, 2] - pos[:, None, 2]
     d2 = dx * dx + (dy * dy + (dz * dz + EPS2))
-    w = gm[None, :] * jax.lax.rsqrt(d2 * (d2 * d2))
-    ax = jnp.sum(w * dx, axis=1)
-    ay = jnp.sum(w * dy, axis=1)
-    az = jnp.sum(w * dz, axis=1)
-    np.testing.assert_allclose(np.asarray(out[:, 0]), np.asarray(ax), rtol=1e-4, atol=1e-8)
-    np.testing.assert_allclose(np.asarray(out[:, 1]), np.asarray(ay), rtol=1e-4, atol=1e-8)
-    np.testing.assert_allclose(np.asarray(out[:, 2]), np.asarray(az), rtol=1e-4, atol=1e-8)
+    w = gm[None, :] * jax.lax.rsqrt(d2 * d2 * d2)
+    for c, d in enumerate((dx, dy, dz)):
+        np.testing.assert_allclose(
+            out[:, c], np.asarray(jnp.sum(w * d, axis=1)), rtol=1e-4, atol=1e-8
+        )
 
 
 def test_self_pair_contributes_zero():
@@ -154,61 +104,28 @@ def test_self_pair_contributes_zero():
     (finite, softened) self weight multiplies zero (module docstring)."""
     pm = np.array([[1.0, -2.0, 3.0, 1e7]], np.float32)
     s = init_state(pm, np.zeros((1, 4), np.float32), n_pad=8)
-    srcT = src_transposed(s.pos_mass, G)
-    out = accel_pallas(
-        s.pos_mass, srcT, eps2=EPS2, block_target=8, block_source=8, interpret=True
-    )
-    np.testing.assert_array_equal(np.asarray(out[0]), np.zeros(4, np.float32))
+    out = _kernel(s.pos_mass)
+    np.testing.assert_array_equal(out[0], np.zeros(4, np.float32))
+
+
+def test_zero_mass_padding_is_force_neutral(rng):
+    """Rows of zero mass (the engine's padding) change no real body's
+    acceleration, wherever they sit."""
+    s = random_state(rng, 100)
+    pad = np.concatenate(
+        [rng.normal(size=(28, 3)), np.zeros((28, 1))], axis=1
+    ).astype(np.float32)
+    padded = jnp.concatenate([s.pos_mass, jnp.asarray(pad)], axis=0)
+    a = _kernel(s.pos_mass)
+    b = _kernel(padded)[:100]
+    np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-9)
 
 
 def test_kernel_bitwise_deterministic(rng):
     """Same input => bit-identical output, run to run — the determinism the
     reference loses to its cross-workgroup race for N > 256 (SURVEY §2.3)."""
     s = random_state(rng, 512)
-    srcT = src_transposed(s.pos_mass, G)
-    kw = dict(eps2=EPS2, block_target=128, block_source=256, interpret=True)
-    a1 = accel_pallas(s.pos_mass, srcT, **kw)
-    a2 = accel_pallas(s.pos_mass, srcT, **kw)
-    np.testing.assert_array_equal(np.asarray(a1), np.asarray(a2))
-
-
-@pytest.mark.parametrize("mode", ["exact", "fast"])
-def test_fused_step_matches_oracle_step(rng, mode):
-    s = random_state(rng, 512)
-    acc = accel_direct(s.pos_mass, G, eps2=EPS2)
-    ref = verlet_step(s, acc, DT)
-    p, v, a = fused_step_pallas(
-        s.pos_mass, s.vel, s.accel, DT, G,
-        eps2=EPS2, n_real=512, block_target=128, block_source=256,
-        mode=mode, interpret=True,
-    )
-    np.testing.assert_allclose(np.asarray(p), np.asarray(ref.pos_mass), rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(v), np.asarray(ref.vel), rtol=1e-5, atol=1e-6)
-    a_ref = np.asarray(ref.accel)
-    if mode == "exact":
-        np.testing.assert_allclose(np.asarray(a), a_ref, rtol=1e-5, atol=1e-7)
-    else:
-        # bf16 weight noise: bounded relative to the acceleration scale
-        assert np.abs(np.asarray(a) - a_ref).max() / np.abs(a_ref).max() < 6e-3
-
-
-def test_fused_step_padding(rng):
-    """Padded rows stay frozen; real rows match the unpadded run."""
-    n, n_pad = 200, 256
-    s = random_state(rng, n, n_pad=n_pad)
-    s_unpadded = init_state(
-        np.asarray(s.pos_mass[:n]), np.asarray(s.vel[:n]), np.asarray(s.accel[:n])
-    )
-    p, v, a = fused_step_pallas(
-        s.pos_mass, s.vel, s.accel, DT, G,
-        eps2=EPS2, n_real=n, block_target=128, block_source=128, interpret=True,
-    )
-    acc = accel_direct(s_unpadded.pos_mass, G, eps2=EPS2)
-    ref = verlet_step(s_unpadded, acc, DT)
-    np.testing.assert_allclose(np.asarray(p[:n]), np.asarray(ref.pos_mass), rtol=1e-6, atol=1e-7)
-    np.testing.assert_array_equal(np.asarray(p[n:]), np.zeros((n_pad - n, 4)))
-    np.testing.assert_array_equal(np.asarray(v[n:]), np.zeros((n_pad - n, 4)))
-    np.testing.assert_array_equal(np.asarray(a[n:]), np.zeros((n_pad - n, 4)))
+    np.testing.assert_array_equal(_kernel(s.pos_mass), _kernel(s.pos_mass))
 
 
 def test_shard_decomposition_matches_monolithic(rng):
@@ -217,29 +134,70 @@ def test_shard_decomposition_matches_monolithic(rng):
     n = 256
     s = random_state(rng, n)
     oracle = accel_direct(s.pos_mass, G, eps2=EPS2)
-    total = jnp.zeros((n, 4), jnp.float32)
-    k = 4
-    shard = n // k
-    for i in range(k):
-        part = accel_pallas(
-            s.pos_mass,
-            src_transposed(s.pos_mass[i * shard : (i + 1) * shard], G),
-            eps2=EPS2, block_target=64, block_source=64, interpret=True,
-        )
-        total = total + part
-    np.testing.assert_allclose(np.asarray(total), np.asarray(oracle), rtol=1e-5, atol=1e-7)
+    total = np.zeros((n, 4), np.float32)
+    shard = n // 4
+    for i in range(4):
+        total += np.asarray(accel_pallas(
+            s.pos_mass, src_transposed(s.pos_mass[i * shard:(i + 1) * shard], G),
+            eps2=EPS2, interpret=True,
+        ))
+    np.testing.assert_allclose(total, np.asarray(oracle), rtol=1e-5, atol=1e-7)
 
 
-def test_dt_zero_is_identity_except_accel(rng):
-    """dt=0 through the fused kernel: pos/vel unchanged (pause-adjacent
-    semantics; the engine skips stepping entirely when paused)."""
-    s = random_state(rng, 256)
-    p, v, a = fused_step_pallas(
-        s.pos_mass, s.vel, s.accel, 0.0, G,
-        eps2=EPS2, n_real=256, block_target=128, block_source=128, interpret=True,
-    )
-    np.testing.assert_array_equal(np.asarray(p), np.asarray(s.pos_mass))
-    np.testing.assert_array_equal(np.asarray(v), np.asarray(s.vel))
+@pytest.mark.parametrize("n_t,n_s", [(40, 200), (200, 40), (1, 1), (129, 65)])
+def test_wrapper_shapes_match_plain_partial(rng, n_t, n_s):
+    """Disjoint target and source sets of any size: the wrapper pads both
+    to whole blocks and returns exactly ``(n_t, 4)``."""
+    tgt = random_state(rng, n_t).pos_mass
+    src = src_transposed(random_state(rng, n_s).pos_mass, G)
+    got = np.asarray(accel_pallas(tgt, src, eps2=EPS2, interpret=True))
+    ref = np.asarray(accel_partial(tgt, src, eps2=EPS2))
+    assert got.shape == (n_t, 4)
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize(
+    "blocks,tiles,min_programs,want",
+    [
+        (626, 2504, 1056, (2, 1252)),  # 40,002 bodies at 64x16
+        (4096, 16384, 1056, (1, 16384)),  # 262,144: enough blocks
+        (1, 3, 1056, (3, 1)),  # never more splits than tiles
+        (5, 7, 12, (3, 3)),  # uneven split
+        (1, 9, 6, (5, 2)),  # 6 wanted, 5 cover all tiles: none left empty
+        (8, 8, 1, (1, 8)),
+    ],
+)
+def test_source_split(blocks, tiles, min_programs, want):
+    split, per = source_split(blocks, tiles, min_programs)
+    assert (split, per) == want
+    assert (split - 1) * per < tiles <= split * per
+
+
+def test_constants_are_whole_blocks():
+    assert PAD_MULTIPLE % BLOCK_T == 0 and PAD_MULTIPLE % BLOCK_S == 0
+    for b in (BLOCK_T, BLOCK_S):
+        assert b & (b - 1) == 0, "Triton blocks are powers of two"
+
+
+@pytest.mark.parametrize("n", [40064, 262144])
+def test_kernel_lowers_for_the_gpu(n):
+    """The kernel lowers through the Triton route for CUDA (no interpret
+    mode, no compilation) at the benchmark's padded widths."""
+    spec = jax.ShapeDtypeStruct((n, 4), jnp.float32)
+    srcT = jax.ShapeDtypeStruct((4, n), jnp.float32)
+    lowered = jax.jit(
+        lambda p, s: accel_pallas(p, s, eps2=EPS2)
+    ).trace(spec, srcT).lower(lowering_platforms=("cuda",))
+    text = lowered.as_text()
+    assert "triton" in text.lower()
+    assert "direct_force" in text
+
+
+def test_direct_accel_matches_oracle(rng):
+    s = random_state(rng, 200)
+    got = np.asarray(direct_accel(s.pos_mass, G, eps2=EPS2, interpret=True))
+    ref = np.asarray(accel_direct(s.pos_mass, G, eps2=EPS2))
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-7)
 
 
 def test_eps2_must_be_positive(rng):

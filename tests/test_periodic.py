@@ -48,7 +48,7 @@ class TestP3MPeriodic:
         got = np.asarray(
             accel_p3m(
                 jnp.asarray(pm), G, grid=grid, eps2=eps2, nbr_k=8,
-                short_backend="jnp", boundary="periodic", box_size=L,
+                boundary="periodic", box_size=L,
             )
         )[:, :3]
         ref = _oracle(pm, 1.5 * L / grid, eps2)
@@ -77,8 +77,7 @@ class TestP3MPeriodic:
         center = pm_seam.copy()
         center[:, 0] = (center[:, 0] + 0.5) % L  # shift pair to center
         kw = dict(
-            grid=32, eps2=eps2, nbr_k=4, short_backend="jnp",
-            boundary="periodic", box_size=L,
+            grid=32, eps2=eps2, nbr_k=4, boundary="periodic", box_size=L,
         )
         a_seam = np.asarray(accel_p3m(jnp.asarray(pm_seam), G, **kw))
         a_cent = np.asarray(accel_p3m(jnp.asarray(center), G, **kw))
@@ -108,7 +107,7 @@ class TestP3MPeriodic:
             got = np.asarray(
                 accel_p3m(
                     jnp.asarray(pm), G, grid=32, eps2=eps2, nbr_k=8,
-                    short_backend="jnp", interlace=il,
+                    interlace=il,
                     boundary="periodic", box_size=L,
                 )
             )[:, :3]
@@ -125,7 +124,7 @@ class TestP3MPeriodic:
         a = np.asarray(
             accel_p3m(
                 jnp.asarray(pm), G, grid=32, eps2=1e-6, nbr_k=8,
-                short_backend="jnp", interlace=True,
+                interlace=True,
                 boundary="periodic", box_size=L,
             )
         )[:, :3]
@@ -137,20 +136,23 @@ class TestP3MPeriodic:
         a = np.asarray(
             accel_p3m(
                 jnp.asarray(pm), G, grid=32, eps2=1e-6, nbr_k=8,
-                short_backend="jnp", boundary="periodic", box_size=L,
+                boundary="periodic", box_size=L,
             )
         )[:, :3]
         f = pm[:, 3:4] * a
         fscale = np.abs(f).sum()
         assert np.abs(f.sum(axis=0)).max() < 3e-5 * fscale
 
-    def test_pallas_short_range_matches_jnp(self):
-        """short_backend=pallas (interpret) == jnp on the periodic split."""
+    def test_short_range_matches_pair_sum(self):
+        """The block-sparse periodic short range with every tile admitted
+        equals a brute-force minimum-image sum of the split pair scalar
+        over all pairs inside the cutoff."""
+        from nbody3d_tpu.ops.ewald import k_short_periodic
+        from nbody3d_tpu.ops.morton import morton_keys
         from nbody3d_tpu.ops.p3m import (
             _select_neighbors, _sorted_aabbs, mutual_neighbor_mask,
             short_range_tiles,
         )
-        from nbody3d_tpu.ops.morton import morton_keys
 
         pm = _rand_pm(512, seed=7)
         ps = jnp.asarray(pm)[jnp.argsort(morton_keys(jnp.asarray(pm), 512))]
@@ -161,21 +163,19 @@ class TestP3MPeriodic:
         rcut = 4.5 * sigma
         lo_b, hi_b = _sorted_aabbs(ps, 512, block)
         Lj = jnp.float32(L)
-        kth, neg, idx = _select_neighbors(lo_b, hi_b, 0, nb, h, 4, L=Lj)
+        kth, neg, idx = _select_neighbors(lo_b, hi_b, 0, nb, h, nb, L=Lj)
         mask = mutual_neighbor_mask(neg, idx, kth)
-        a_jnp = short_range_tiles(
-            ps, idx, 0, nb, 1e-6, sigma, rcut, block, nbr_mask=mask,
-            backend="jnp", box=Lj,
-        )
-        a_pal = short_range_tiles(
-            ps, idx, 0, nb, 1e-6, sigma, rcut, block, nbr_mask=mask,
-            backend="pallas", interpret=True, box=Lj,
-        )
-        scale = np.abs(np.asarray(a_jnp)).max()
-        np.testing.assert_allclose(
-            np.asarray(a_pal)[:, :3] / scale, np.asarray(a_jnp) / scale,
-            atol=3e-6,  # A-S erfc |err| <= 1.5e-7, rsqrt rounding
-        )
+        got = np.asarray(short_range_tiles(
+            ps, idx, 0, nb, 1e-6, sigma, rcut, block, nbr_mask=mask, box=Lj,
+        ))
+        d = ps[None, :, :3] - ps[:, None, :3]
+        d = d - Lj * jnp.round(d / Lj)
+        r2 = jnp.sum(d * d, axis=-1)
+        w = k_short_periodic(r2, 1e-6, sigma) * ps[None, :, 3]
+        w = jnp.where((r2 > 0) & (r2 < rcut * rcut), w, 0.0)
+        want = np.asarray(jnp.sum(w[:, :, None] * d, axis=1))
+        scale = np.abs(want).max()
+        np.testing.assert_allclose(got / scale, want / scale, atol=3e-6)
 
     def test_grad_flows(self):
         """jax.grad through the periodic P3M step (jnp backend)."""
@@ -183,8 +183,7 @@ class TestP3MPeriodic:
 
         def loss(p):
             a = accel_p3m(
-                p, G, grid=16, eps2=1e-6, nbr_k=2, short_backend="jnp",
-                boundary="periodic", box_size=L,
+                p, G, grid=16, eps2=1e-6, nbr_k=2, boundary="periodic", box_size=L,
             )
             return jnp.sum(a[:, :3] ** 2)
 
@@ -338,11 +337,9 @@ class TestShardedPeriodic:
         np.testing.assert_allclose(v2 / vs, v1 / vs, atol=2e-5)
 
     def test_matches_single_device_tile_mesh(self):
-        """Sharded periodic P3M on the WRAP-AWARE MXU tile kernels
-        (backend="pallas" → interpret on the CPU mesh, block % 128 == 0
-        and grid ≥ 32 so use_tiles engages) == the single-device jnp-mesh
-        step: a cross-backend check that the halo fold/prefill + mod-grid
-        repair reproduce the XLA torus mesh inside the psum pipeline."""
+        """Sharded periodic P3M with 128-body tiles on a 32^3 torus mesh
+        == the single-device step: the wrapped deposit meets in one grid
+        psum and reproduces the single-device mesh."""
         import jax as _jax
 
         from nbody3d_tpu.config import SimConfig
@@ -355,14 +352,14 @@ class TestShardedPeriodic:
 
         cfg = SimConfig(
             method="p3m", boundary="periodic", box_size=1.0, pm_grid=32,
-            p3m_block=128, p3m_nbr_k=16, backend="pallas", dt=2e-4, G=2e-3,
+            p3m_block=128, p3m_nbr_k=16, backend="jnp", dt=2e-4, G=2e-3,
         )
         n_pad = 2048
         n_real = 2000
         pm0 = _rand_pm(n_real, seed=9)
         vel0 = np.zeros((n_real, 4), np.float32)
 
-        cfg_ref = cfg.replace(backend="jnp")
+        cfg_ref = cfg
         st1 = init_state(pm0, vel0, n_pad=n_pad)
         out1 = _jax.jit(make_step_fn(cfg_ref, n_pad, n_real))(
             st1, np.float32(cfg.dt), np.float32(cfg.G)

@@ -4,6 +4,7 @@
 import hashlib
 
 import numpy as np
+import pytest
 
 from nbody3d_tpu.render.colormap import velocity_colormap
 from nbody3d_tpu.render.rasterize import project_points, render_points
@@ -184,7 +185,7 @@ def test_native_resolve_matches_numpy():
 
 def test_device_prep_matches_host():
     """The device (f32 jnp) projection/color/sort prep — the 16M-scale
-    path (VERDICT r2 #7) — produces the same frame as the host f64 prep
+    path — produces the same frame as the host f64 prep
     on a dense multi-scale scene (minor sub-pixel rounding differences
     allowed, but none observed on this seed)."""
     rng = np.random.default_rng(9)
@@ -247,184 +248,85 @@ def test_device_resolve_single_body():
     assert np.abs(a[64, 64].astype(int) - b[64, 64].astype(int)).max() <= 8
 
 
-def _pallas_vs_host_images(n, seed, width, height, radius=4.0,
-                           heavy=2):
-    """Render the same scene through the host resolve and the Pallas
-    device resolve, BOTH fed by the device (f32) prep, so any pixel
-    difference is the resolve's."""
-    from nbody3d_tpu.render import rasterize
-
+def _scene(n, seed, radius=4.0, heavy=2):
     rng = np.random.default_rng(seed)
     pos_mass = np.concatenate(
         [rng.normal(scale=2.5, size=(n, 3)), rng.uniform(10, 50, (n, 1))],
         axis=1,
     ).astype(np.float32)
-    if heavy:
-        pos_mass[:heavy, 3] = 1e7  # r >= 2: exercises the host-prefix stamp
+    pos_mass[:heavy, 3] = 1e7  # r >= 2: exercises the host-prefix stamp
     vel = rng.normal(scale=5.0, size=(n, 4)).astype(np.float32)
-    cam = Camera(target=np.zeros(3), radius=radius)
-    kw = dict(width=width, height=height)
-    a = render_points(pos_mass, vel, cam, prep="device", **kw)
-    b = render_points(pos_mass, vel, cam, resolve="pallas", **kw)
-    return a, b
+    return pos_mass, vel, Camera(target=np.zeros(3), radius=radius)
 
 
-def test_compact_large_order_and_overflow():
-    """compact_large: packs exactly the visible r >= 2 splats, preserves
-    input order, round-trips the bit-exact u32 fields, and counts past
-    its capacity (the caller's fallback trigger)."""
-    import jax.numpy as jnp
+@pytest.mark.parametrize(
+    "n,seed,radius,heavy,size",
+    [
+        (3000, 1, 4.0, 2, (320, 240)),
+        (8000, 2, 2.0, 5, (256, 160)),  # close-up: many clipped large discs
+        (500, 3, 9.0, 0, (64, 48)),  # far: all small splats, no prefix
+    ],
+)
+def test_device_resolve_equals_quantized_host_stamp(n, seed, radius, heavy, size):
+    """The device resolve's contract, exactly: the host stamp semantics
+    with every key quantized to depth16 << 16 | rgb565.  Stamping the
+    same device-prepped splats on the host under that key gives the same
+    frame bit for bit."""
+    from nbody3d_tpu.render import rasterize as rz
 
-    from nbody3d_tpu.render.pallas_resolve import compact_large
-
-    rng = np.random.default_rng(2)
-    n = 4096
-    cx = jnp.asarray(rng.integers(0, 640, n), jnp.int32)
-    cy = jnp.asarray(rng.integers(0, 480, n), jnp.int32)
-    depth = jnp.asarray(rng.integers(0, 1 << 30, n), jnp.uint32)
-    rgb = jnp.asarray(rng.integers(0, 1 << 24, n), jnp.uint32)
-    r = jnp.asarray(rng.uniform(0.5, 4.0, n), jnp.float32)
-    visible = jnp.asarray(rng.random(n) < 0.7)
-
-    buf, k = compact_large(cx, cy, depth, rgb, r, visible, kmax=1 << 12)
-    buf, k = np.asarray(buf), int(k)
-    mask = np.asarray(visible) & (np.asarray(r) >= 2.0)
-    idx = np.nonzero(mask)[0]
-    assert k == len(idx) and k > 0
-    np.testing.assert_array_equal(buf[:k, 0].astype(np.int64),
-                                  np.asarray(cx)[idx])
-    np.testing.assert_array_equal(
-        np.ascontiguousarray(buf[:k, 2]).view(np.uint32),
-        np.asarray(depth)[idx])
-    np.testing.assert_array_equal(
-        np.ascontiguousarray(buf[:k, 3]).view(np.uint32),
-        np.asarray(rgb)[idx])
-    np.testing.assert_array_equal(buf[:k, 4], np.asarray(r)[idx])
-
-    # overflow: capacity below the true count still reports the count
-    # (rows past kmax land in the dump slot, never corrupt the prefix)
-    kmax = max(k // 2, 1)
-    buf2, k2 = compact_large(cx, cy, depth, rgb, r, visible, kmax=kmax)
-    assert int(k2) == k
-    np.testing.assert_array_equal(np.asarray(buf2)[:kmax], buf[:kmax])
+    pos_mass, vel, cam = _scene(n, seed, radius, heavy)
+    w, h = size
+    dev = render_points(pos_mass, vel, cam, width=w, height=h, resolve="device")
+    cx, cy, keys, r = rz._prep_device(
+        pos_mass, vel, cam, w, h, 1000.0, 64, "magnitude"
+    )
+    depth_bits = (keys >> np.uint64(32)).astype(np.uint32)
+    rgb24 = (keys & np.uint64(0xFFFFFF)).astype(np.uint32)
+    host = rz.composite_device_frame(
+        np.full(w * h, 0xFFFFFFFF, np.uint32),
+        (cx, cy, depth_bits, rgb24, r), w, h,
+    )
+    np.testing.assert_array_equal(dev, host)
 
 
-def test_pallas_resolve_bit_identical():
-    """The Pallas on-device resolve (render/pallas_resolve.py) is
-    BIT-identical to the host packed-u64 resolve on the same device
-    prep — full 32-bit depth test, full rgb24, including the composite
-    with host-stamped large splats (VERDICT r3 #5)."""
-    a, b = _pallas_vs_host_images(20_000, 13, 320, 240)
-    np.testing.assert_array_equal(a, b)
+def _decode_png(data: bytes) -> np.ndarray:
+    """Minimal decoder for the writer's own output (8-bit RGB, filter 0)."""
+    import struct
+    import zlib
+
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        crc = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])[0]
+        assert crc == zlib.crc32(kind + body) & 0xFFFFFFFF
+        if kind == b"IHDR":
+            w, h, depth, ctype = struct.unpack(">IIBB", body[:10])
+            assert (depth, ctype) == (8, 2)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + length
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    assert (rows[:, 0] == 0).all()
+    return rows[:, 1:].reshape(h, w, 3)
 
 
-def test_pallas_resolve_multi_bin_boundaries():
-    """Splats straddling bin boundaries (the halo/fold path): a frame
-    wider than one 256-px column bin and taller than several 8-px row
-    bins, dense enough that many stamps cross bin edges."""
-    a, b = _pallas_vs_host_images(6_000, 7, 640, 100, radius=2.0, heavy=0)
-    np.testing.assert_array_equal(a, b)
+@pytest.mark.parametrize("shape", [(1, 1), (7, 5), (48, 64)])
+def test_png_writer_roundtrip(tmp_path, shape):
+    """The standard-library PNG writer round-trips exactly (no Pillow)."""
+    from nbody3d_tpu.render.image import save_png
+
+    img = np.random.default_rng(0).integers(
+        0, 256, shape + (3,), dtype=np.uint8
+    )
+    path = tmp_path / "f.png"
+    save_png(str(path), img)
+    np.testing.assert_array_equal(_decode_png(path.read_bytes()), img)
 
 
-def test_pallas_resolve_tier3_large_splats():
-    """Round 5: splats with r in [16, 64] rasterize ON-DEVICE (tier 3,
-    64-px halo bins) — the frame must still be bit-identical to the
-    host resolve, with NO host fallback engaged (n_host == 0)."""
-    import jax
-    import jax.numpy as jnp
+def test_png_writer_rejects_non_rgb():
+    from nbody3d_tpu.render.image import encode_png
 
-    from nbody3d_tpu.render import rasterize
-    from nbody3d_tpu.render.pallas_resolve import resolve_all_pallas
-
-    rng = np.random.default_rng(11)
-    n = 3000
-    pos_mass = np.concatenate(
-        [rng.normal(scale=2.0, size=(n, 3)), rng.uniform(10, 50, (n, 1))],
-        axis=1,
-    ).astype(np.float32)
-    # a spread of masses that project to the full radius range incl.
-    # the 16..64 px tier at this close camera
-    pos_mass[:64, 3] = np.geomspace(1e5, 5e9, 64)
-    vel = rng.normal(scale=5.0, size=(n, 4)).astype(np.float32)
-    cam = Camera(target=np.zeros(3), radius=2.0)
-    kw = dict(width=320, height=240)
-    a = render_points(pos_mass, vel, cam, prep="device", **kw)
-    b = render_points(pos_mass, vel, cam, resolve="pallas", **kw)
-    np.testing.assert_array_equal(a, b)
-    # the device covered everything: no host-composite records
-    out = rasterize._prep_device_unsorted_raw(
-        pos_mass, vel, cam, 320, 240, 1000.0, 64, "magnitude")
-    r = np.asarray(jax.device_get(out[4]))
-    vis = np.asarray(jax.device_get(out[5]))
-    assert ((r >= 16) & (r <= 64) & vis).sum() > 0, "tier 3 not exercised"
-    _, _, n_host = resolve_all_pallas(
-        *out, width=320, height=240, interpret=True)
-    assert int(jax.device_get(n_host)) == 0
-
-
-def test_pallas_resolve_fallback_beyond_tier_rmax():
-    """max_radius_px > 64 sends the r > 64 splats through the host
-    fallback composite; the frame still equals the all-host resolve."""
-    rng = np.random.default_rng(12)
-    n = 1500
-    pos_mass = np.concatenate(
-        [rng.normal(scale=2.0, size=(n, 3)), rng.uniform(10, 50, (n, 1))],
-        axis=1,
-    ).astype(np.float32)
-    pos_mass[:4, 3] = 5e10  # huge: projects past 64 px
-    vel = rng.normal(scale=5.0, size=(n, 4)).astype(np.float32)
-    cam = Camera(target=np.zeros(3), radius=2.0)
-    kw = dict(width=256, height=160, max_radius_px=96)
-    a = render_points(pos_mass, vel, cam, prep="device", **kw)
-    b = render_points(pos_mass, vel, cam, resolve="pallas", **kw)
-    np.testing.assert_array_equal(a, b)
-
-
-def test_dekker_square_is_exact():
-    """The kernel's circle predicate d2 <= r² must match the host's
-    f64 compare for EVERY f32 radius: (hi, lo) = dekker(r) carries r²
-    exactly, so d2 < hi | (d2 == hi & lo >= 0)  <=>  d2 <= f64(r)²."""
-    import jax
-
-    from nbody3d_tpu.render.pallas_resolve import _dekker_sq
-
-    rng = np.random.default_rng(0)
-    r = np.concatenate([
-        rng.uniform(0.5, 64.0, 20_000).astype(np.float32),
-        # adversarial: radii whose squares sit next to integers
-        np.sqrt(np.arange(1, 4097, dtype=np.float64)).astype(np.float32),
-        np.nextafter(
-            np.sqrt(np.arange(1, 4097, dtype=np.float64)).astype(np.float32),
-            np.float32(0.0),
-        ),
-    ])
-    hi, lo = map(np.asarray, jax.jit(_dekker_sq)(r))
-    r64 = r.astype(np.float64)
-    # exactness: hi + lo == r*r in f64 (both exact for 24-bit r)
-    np.testing.assert_array_equal(hi.astype(np.float64) + lo, r64 * r64)
-    # the predicate agrees with f64 on every integer d2 in range
-    for d2 in (0.0, 1.0, 2.0, 255.0, 256.0, 4095.0, 4096.0):
-        want = d2 <= r64 * r64
-        got = (d2 < hi) | ((d2 == hi) & (lo >= 0))
-        np.testing.assert_array_equal(got, want)
-
-
-def test_pallas_resolve_corner_radius_threshold():
-    """Bodies engineered around the r = 1, sqrt(2), 2 inclusion edges:
-    the kernel's f32 thresholds must reproduce the host's f64 circle
-    test exactly."""
-    from nbody3d_tpu.render import rasterize
-
-    n = 512
-    rng = np.random.default_rng(3)
-    pos_mass = np.concatenate(
-        [rng.normal(scale=1.0, size=(n, 3)),
-         rng.uniform(10, 50, (n, 1))], axis=1).astype(np.float32)
-    vel = rng.normal(scale=5.0, size=(n, 4)).astype(np.float32)
-    cam = Camera(target=np.zeros(3), radius=5.0)
-    # sweep size_factor so projected radii cross the thresholds
-    for sf in (400.0, 700.0, 1000.0, 1800.0):
-        kw = dict(width=200, height=160, size_factor=sf)
-        a = render_points(pos_mass, vel, cam, prep="device", **kw)
-        b = render_points(pos_mass, vel, cam, resolve="pallas", **kw)
-        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="H, W, 3"):
+        encode_png(np.zeros((4, 4), np.uint8))

@@ -46,7 +46,7 @@ def test_mesh_info():
 @pytest.mark.parametrize("strategy", ["ring", "gather"])
 def test_sharded_step_matches_single_device(mesh, strategy):
     n = 512
-    cfg = SimConfig(backend="jnp", block_target=64, block_source=64, strategy=strategy)
+    cfg = SimConfig(backend="jnp", strategy=strategy)
     s = random_state(0, n)
     ref = make_step_fn(cfg, n, n, "cpu")(s, DT, G)
     step = make_sharded_step(cfg, n, n, mesh, "cpu")
@@ -63,7 +63,7 @@ def test_sharded_step_matches_single_device(mesh, strategy):
 def test_sharded_multi_step_trajectory(mesh):
     """10 steps sharded vs single-device stay within f32 drift."""
     n = 256
-    cfg = SimConfig(backend="jnp", block_target=32, block_source=32, strategy="ring")
+    cfg = SimConfig(backend="jnp", strategy="ring")
     s = random_state(1, n)
     step1 = make_step_fn(cfg, n, n, "cpu")
     run1 = make_scan_fn(step1)
@@ -82,7 +82,7 @@ def test_sharded_multi_step_trajectory(mesh):
 def test_sharded_with_padding(mesh):
     """n_real < n_pad: padded rows frozen, real rows correct."""
     n, n_pad = 400, 512
-    cfg = SimConfig(backend="jnp", block_target=64, block_source=64, strategy="ring")
+    cfg = SimConfig(backend="jnp", strategy="ring")
     s = random_state(2, n, n_pad=n_pad)
     ref = make_step_fn(cfg, n_pad, n, "cpu")(s, DT, G)
     step = make_sharded_step(cfg, n_pad, n, mesh, "cpu")
@@ -106,26 +106,19 @@ def test_sharded_diagnostics_psum(mesh):
     )
 
 
-@pytest.mark.parametrize("force_mode", ["exact", "fast"])
-def test_sharded_ring_with_pallas_kernel(mesh, force_mode):
-    """The ring path driving the actual Pallas kernel (interpret mode on
-    CPU) — covers the src layout rebuild per hop for both force modes."""
+@pytest.mark.parametrize("strategy", ["ring", "gather"])
+def test_sharded_ring_with_pallas_kernel(mesh, strategy):
+    """The 1-D strategies driving the actual Triton kernel (interpreted on
+    the CPU mesh): the same kernel serves every hop, no self-pair mask."""
     n = 256
-    cfg = SimConfig(
-        backend="pallas", force_mode=force_mode,
-        block_target=32, block_source=32, strategy="ring",
-    )
+    cfg = SimConfig(backend="pallas_interpret", strategy=strategy)
     s = random_state(7, n)
     ref = make_step_fn(SimConfig(backend="jnp"), n, n, "cpu")(s, DT, G)
     step = make_sharded_step(cfg, n, n, mesh, "cpu")
     out = jax.jit(step)(shard_state(s, mesh, "x"), DT, G)
-    if force_mode == "exact":
-        np.testing.assert_allclose(
-            np.asarray(out.accel), np.asarray(ref.accel), rtol=1e-5, atol=1e-6
-        )
-    else:
-        a, r = np.asarray(out.accel), np.asarray(ref.accel)
-        assert np.abs(a - r).max() / np.abs(r).max() < 2e-2
+    np.testing.assert_allclose(
+        np.asarray(out.accel), np.asarray(ref.accel), rtol=1e-5, atol=1e-6
+    )
 
 
 def test_determinism_across_shardings(mesh):
@@ -133,7 +126,7 @@ def test_determinism_across_shardings(mesh):
     'sanitizer' replacing the reference's data race, SURVEY §5.2) — up to
     f32 reduction-order tolerance, and bit-identical run-to-run."""
     n = 256
-    cfg = SimConfig(backend="jnp", block_target=32, block_source=32, strategy="ring")
+    cfg = SimConfig(backend="jnp", strategy="ring")
     s = random_state(4, n)
     step = make_sharded_step(cfg, n, n, mesh, "cpu")
     out1 = jax.jit(step)(shard_state(s, mesh, "x"), DT, G)
@@ -152,7 +145,7 @@ def mesh2d():
 
 def test_grid2d_matches_single_device(mesh2d):
     n = 512
-    cfg = SimConfig(backend="jnp", block_target=64, block_source=64, strategy="2d")
+    cfg = SimConfig(backend="jnp", strategy="2d")
     s = random_state(0, n)
     ref = make_step_fn(cfg.replace(strategy="ring"), n, n, "cpu")(s, DT, G)
     step = make_sharded_step(cfg, n, n, mesh2d, "cpu")
@@ -167,27 +160,25 @@ def test_grid2d_matches_single_device(mesh2d):
 
 
 def test_grid2d_with_padding_and_pallas(mesh2d):
-    """2-D tile force with the real kernel (interpret) + the single-diagonal
-    self-mask at offset (r - c) * m, with padded tail rows frozen."""
+    """2-D tile force with the real kernel (interpreted), padded tail rows
+    frozen; self-pairs inside the tile add exactly zero."""
     n, n_pad = 400, 512
-    cfg = SimConfig(
-        backend="pallas", force_mode="fast",
-        block_target=32, block_source=32, strategy="2d",
-    )
+    cfg = SimConfig(backend="pallas_interpret", strategy="2d")
     s = random_state(2, n, n_pad=n_pad)
     ref = make_step_fn(SimConfig(backend="jnp"), n_pad, n, "cpu")(s, DT, G)
     step = make_sharded_step(cfg, n_pad, n, mesh2d, "cpu")
     out = jax.jit(step)(shard_state(s, mesh2d), DT, G)
     pos = np.asarray(jax.device_get(out.pos_mass))
-    np.testing.assert_allclose(pos[:n], np.asarray(ref.pos_mass)[:n], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(pos[:n], np.asarray(ref.pos_mass)[:n], rtol=1e-6, atol=1e-7)
     np.testing.assert_array_equal(pos[n:], np.zeros((n_pad - n, 4)))
-    a, r = np.asarray(out.accel)[:n], np.asarray(ref.accel)[:n]
-    assert np.abs(a - r).max() / np.abs(r).max() < 2e-2
+    np.testing.assert_allclose(
+        np.asarray(out.accel)[:n], np.asarray(ref.accel)[:n], rtol=1e-5, atol=1e-6
+    )
 
 
 def test_grid2d_multi_step_and_diagnostics(mesh2d):
     n = 256
-    cfg = SimConfig(backend="jnp", block_target=32, block_source=32, strategy="2d")
+    cfg = SimConfig(backend="jnp", strategy="2d")
     s = random_state(1, n)
     step1 = make_step_fn(cfg.replace(strategy="ring"), n, n, "cpu")
     ref = make_scan_fn(step1)(jax.tree.map(jnp.copy, s), DT, G, 10)
@@ -205,30 +196,12 @@ def test_grid2d_multi_step_and_diagnostics(mesh2d):
     np.testing.assert_allclose(float(d.potential), float(d0.potential), rtol=1e-5)
 
 
-# ------------------------------------------------- Newton-3 half ring
-def test_ringsym_matches_single_device(mesh):
-    """Each unordered shard pair computed once + backward return carry
-    must reproduce the monolithic force (jnp oracle path)."""
-    n = 512
-    cfg = SimConfig(backend="jnp", block_target=64, block_source=64, strategy="ringsym")
-    s = random_state(0, n)
-    ref = make_step_fn(cfg, n, n, "cpu")(s, DT, G)
-    step = make_sharded_step(cfg, n, n, mesh, "cpu")
-    out = jax.jit(step)(shard_state(s, mesh, "x"), DT, G)
-    np.testing.assert_allclose(
-        np.asarray(out.pos_mass), np.asarray(ref.pos_mass), rtol=1e-6, atol=1e-7
-    )
-    np.testing.assert_allclose(
-        np.asarray(out.accel), np.asarray(ref.accel), rtol=1e-4, atol=1e-6
-    )
-    assert int(out.step) == 1
-
-
-def test_ringsym_odd_device_count():
-    """Odd D has no shared half-hop: distances 1..(D-1)/2 cover all pairs."""
+# ----------------------------------------------------- ring variants
+def test_ring_odd_device_count():
+    """An odd ring (5 devices) covers every shard pair once."""
     mesh5 = default_mesh(5)
     n = 400
-    cfg = SimConfig(backend="jnp", block_target=16, block_source=16, strategy="ringsym")
+    cfg = SimConfig(backend="jnp", strategy="ring")
     s = random_state(4, n)
     ref = make_step_fn(cfg, n, n, "cpu")(s, DT, G)
     step = make_sharded_step(cfg, n, n, mesh5, "cpu")
@@ -238,53 +211,13 @@ def test_ringsym_odd_device_count():
     )
 
 
-def test_ringsym_pallas_interpret_and_padding(mesh):
-    """The real pair/sym kernels through the half ring, with padded tail."""
-    n, n_pad = 400, 512
-    cfg = SimConfig(
-        backend="pallas", force_mode="sym",
-        block_target=32, block_source=32, strategy="ring",  # auto-upgrades
-    )
-    s = random_state(2, n, n_pad=n_pad)
-    ref = make_step_fn(SimConfig(backend="jnp"), n_pad, n, "cpu")(s, DT, G)
-    step = make_sharded_step(cfg, n_pad, n, mesh, "cpu")
-    out = jax.jit(step)(shard_state(s, mesh, "x"), DT, G)
-    pos = np.asarray(jax.device_get(out.pos_mass))
-    np.testing.assert_allclose(pos[:n], np.asarray(ref.pos_mass)[:n], rtol=1e-5, atol=1e-6)
-    np.testing.assert_array_equal(pos[n:], np.zeros((n_pad - n, 4)))
-    a, r = np.asarray(out.accel)[:n], np.asarray(ref.accel)[:n]
-    assert np.abs(a - r).max() / np.abs(r).max() < 2e-2  # bf16 weight noise
-
-
-def test_ringsym_multi_step(mesh):
-    n = 256
-    cfg = SimConfig(backend="jnp", block_target=32, block_source=32, strategy="ringsym")
-    s = random_state(1, n)
-    step1 = make_step_fn(cfg, n, n, "cpu")
-    ref = make_scan_fn(step1)(jax.tree.map(jnp.copy, s), DT, G, 10)
-    stepD = make_sharded_step(cfg, n, n, mesh, "cpu")
-    out = make_scan_fn(stepD)(shard_state(s, mesh, "x"), DT, G, 10)
-    np.testing.assert_allclose(
-        np.asarray(out.pos_mass), np.asarray(ref.pos_mass), rtol=1e-5, atol=1e-6
-    )
-    assert int(out.step) == 10
-
-
-def test_ringsym_rejects_exact_mode(mesh):
-    cfg = SimConfig(backend="pallas", force_mode="exact", strategy="ringsym",
-                    block_target=32, block_source=32)
-    with pytest.raises(ValueError, match="ringsym"):
-        make_sharded_step(cfg, 512, 512, mesh, "cpu")
-
-
-def test_ringsym_rolled_fallback(mesh, monkeypatch):
-    """Beyond _MAX_UNROLL the half ring rolls its hop and carry loops into
-    fori_loops (stacked reverse buffers) — results must be unchanged."""
+def test_ring_rolled_fallback(mesh, monkeypatch):
+    """Beyond _MAX_UNROLL the ring rolls its hops into a fori_loop —
+    results must be unchanged."""
     import nbody3d_tpu.parallel.sharded as sh
 
     n = 256
-    cfg = SimConfig(backend="jnp", block_target=32, block_source=32,
-                    strategy="ringsym")
+    cfg = SimConfig(backend="pallas_interpret", strategy="ring")
     s = random_state(5, n)
     ref = jax.jit(make_sharded_step(cfg, n, n, mesh, "cpu"))(
         shard_state(s, mesh, "x"), DT, G
@@ -298,41 +231,37 @@ def test_ringsym_rolled_fallback(mesh, monkeypatch):
     )
 
 
-def test_ringsym_source_chunked_pair_hops(mesh, monkeypatch):
-    """When a shard exceeds the sym VMEM cap, pair hops split their source
-    side into chunks; physics unchanged."""
-    import nbody3d_tpu.parallel.sharded as sh
-
-    n = 512  # shard = 64
-    cfg = SimConfig(backend="pallas", force_mode="sym",
-                    block_target=16, block_source=16, strategy="ringsym")
-    s = random_state(6, n)
-    ref = make_step_fn(SimConfig(backend="jnp"), n, n, "cpu")(s, DT, G)
-    monkeypatch.setattr(sh, "SYM_MAX_N", 32)  # force 2 source chunks per hop
-    step = sh.make_sharded_step(cfg, n, n, mesh, "cpu")
-    out = jax.jit(step)(shard_state(s, mesh, "x"), DT, G)
-    np.testing.assert_allclose(
-        np.asarray(out.accel), np.asarray(ref.accel), rtol=1e-4, atol=1e-6
-    )
+@pytest.mark.parametrize("strategy", ["ringsym", "bogus"])
+def test_unknown_strategy_rejected(mesh, strategy):
+    cfg = SimConfig(backend="jnp", strategy=strategy)
+    s = random_state(6, 256)
+    with pytest.raises(ValueError, match="strategy"):
+        jax.jit(make_sharded_step(cfg, 256, 256, mesh, "cpu"))(
+            shard_state(s, mesh, "x"), DT, G
+        )
 
 
 @pytest.mark.parametrize(
-    "method,strategy", [("direct", "ring"), ("pm", "ring"), ("p3m", "ring")]
+    "method,strategy",
+    [("direct", "ring"), ("pm", "ring"), ("p3m", "ring"), ("direct", "2d")],
 )
-def test_sharded_yoshida4_matches_single_device(mesh, method, strategy):
+def test_sharded_yoshida4_matches_single_device(mesh, mesh2d, method, strategy):
     """Multi-eval integrators re-run the whole exchange schedule per
     sub-step (3 force evaluations): the sharded closure must reproduce the
     single-device composition exactly (jnp backend, f32 tolerance)."""
     n = 512
+    if strategy == "2d":
+        mesh = mesh2d
     cfg = SimConfig(
-        backend="jnp", block_target=64, block_source=64,
+        backend="jnp",
         strategy=strategy, integrator="yoshida4",
         method="direct" if method == "direct" else method, pm_grid=16,
     )
     s = random_state(3, n)
     ref = make_step_fn(cfg, n, n, "cpu")(s, DT, G)
     step = make_sharded_step(cfg, n, n, mesh, "cpu")
-    out = jax.jit(step)(shard_state(s, mesh, "x"), DT, G)
+    axis = None if strategy == "2d" else "x"
+    out = jax.jit(step)(shard_state(s, mesh, axis), DT, G)
     np.testing.assert_allclose(
         np.asarray(out.pos_mass), np.asarray(ref.pos_mass), rtol=1e-6, atol=1e-7
     )

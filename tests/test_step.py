@@ -1,4 +1,4 @@
-"""Step dispatch: backend resolution, block fitting, engine+pallas e2e."""
+"""Step dispatch: backend resolution, padding, block fitting, engine e2e."""
 
 import numpy as np
 import pytest
@@ -6,7 +6,8 @@ import pytest
 from nbody3d_tpu.config import SimConfig
 from nbody3d_tpu.engine import Simulation
 from nbody3d_tpu.models.sphere import uniform_sphere
-from nbody3d_tpu.ops.step import fit_block, resolve_backend
+from nbody3d_tpu.ops.pallas_force import PAD_MULTIPLE
+from nbody3d_tpu.ops.step import fit_block, pad_multiple, resolve_backend
 
 
 def test_fit_block():
@@ -20,61 +21,99 @@ def test_fit_block():
 
 
 def test_resolve_backend():
-    assert resolve_backend(SimConfig(backend="auto"), "tpu") == ("pallas", False)
+    assert resolve_backend(SimConfig(backend="auto"), "gpu") == ("pallas", False)
     assert resolve_backend(SimConfig(backend="auto"), "cpu") == ("jnp", False)
-    assert resolve_backend(SimConfig(backend="pallas"), "cpu") == ("pallas", True)
-    assert resolve_backend(SimConfig(backend="pallas"), "tpu") == ("pallas", False)
-    assert resolve_backend(SimConfig(backend="jnp"), "tpu") == ("jnp", False)
+    assert resolve_backend(SimConfig(backend="pallas_interpret"), "cpu") == (
+        "pallas", True)
+    assert resolve_backend(SimConfig(backend="pallas"), "gpu") == ("pallas", False)
+    assert resolve_backend(SimConfig(backend="jnp"), "gpu") == ("jnp", False)
 
 
-@pytest.mark.parametrize("force_mode", ["exact", "fast"])
-def test_engine_pallas_interpret_end_to_end(force_mode):
-    """Engine -> pallas kernel (interpret) -> verlet, vs the jnp engine."""
+# platform x backend -> (backend, interpret), or the error it raises.
+# Interpret mode is only ever an explicit choice; "pallas" needs the GPU.
+_TABLE = {
+    ("gpu", "auto"): ("pallas", False),
+    ("gpu", "pallas"): ("pallas", False),
+    ("gpu", "pallas_interpret"): ("pallas", True),
+    ("gpu", "jnp"): ("jnp", False),
+    ("cpu", "auto"): ("jnp", False),
+    ("cpu", "pallas"): ValueError,
+    ("cpu", "pallas_interpret"): ("pallas", True),
+    ("cpu", "jnp"): ("jnp", False),
+    ("rocm", "auto"): ("jnp", False),
+    ("rocm", "pallas"): ValueError,
+    ("rocm", "pallas_interpret"): ("pallas", True),
+    ("rocm", "jnp"): ("jnp", False),
+    ("gpu", "fast"): ValueError,
+    ("cpu", "sym"): ValueError,
+}
+
+
+@pytest.mark.parametrize("platform,backend", sorted(_TABLE))
+def test_resolve_backend_table(platform, backend):
+    want = _TABLE[(platform, backend)]
+    cfg = SimConfig(backend=backend)
+    if want is ValueError:
+        with pytest.raises(ValueError, match="backend"):
+            resolve_backend(cfg, platform)
+    else:
+        assert resolve_backend(cfg, platform) == want
+
+
+@pytest.mark.parametrize(
+    "backend,n,platform,want",
+    [
+        ("jnp", 100, "cpu", 8),
+        ("jnp", 40002, "cpu", 256),  # whole 256-target chunks
+        ("auto", 40002, "cpu", 256),
+        ("auto", 40002, "gpu", PAD_MULTIPLE),  # whole kernel blocks
+        ("pallas_interpret", 100, "cpu", PAD_MULTIPLE),
+    ],
+)
+def test_pad_multiple(backend, n, platform, want):
+    assert pad_multiple(SimConfig(backend=backend), n, platform) == want
+
+
+@pytest.mark.parametrize("integrator", ["verlet", "euler"])
+def test_engine_pallas_interpret_end_to_end(integrator):
+    """Engine -> Triton kernel (interpreted) -> integrator, vs the jnp
+    engine."""
     pm, vel, _ = uniform_sphere(200, rng=np.random.default_rng(0))
-    kw = dict(block_target=64, block_source=64)
+    kw = dict(integrator=integrator)
     sim_p = Simulation(
-        SimConfig(backend="pallas", force_mode=force_mode, **kw), pm, vel, platform="cpu"
+        SimConfig(backend="pallas_interpret", **kw), pm, vel, platform="cpu"
     )
     sim_j = Simulation(SimConfig(backend="jnp", **kw), pm, vel, platform="cpu")
+    assert sim_p.n_pad % PAD_MULTIPLE == 0
     sim_p.step(3)
     sim_j.step(3)
-    p_pallas = sim_p.arrays()[0]
-    p_jnp = sim_j.arrays()[0]
-    tol = 1e-6 if force_mode == "exact" else 1e-3
-    np.testing.assert_allclose(p_pallas, p_jnp, rtol=tol, atol=tol)
+    np.testing.assert_allclose(
+        sim_p.arrays()[0], sim_j.arrays()[0], rtol=1e-6, atol=1e-6
+    )
     assert sim_p.step_count == 3
 
 
-def test_fused_engine_matches_unfused():
-    pm, vel, _ = uniform_sphere(128, rng=np.random.default_rng(1))
-    kw = dict(block_target=64, block_source=64)
-    sim_f = Simulation(
-        SimConfig(backend="pallas", fuse_integrate=True, **kw), pm, vel, platform="cpu"
-    )
-    sim_u = Simulation(
-        SimConfig(backend="pallas", fuse_integrate=False, **kw), pm, vel, platform="cpu"
-    )
-    sim_f.step(2)
-    sim_u.step(2)
-    np.testing.assert_allclose(
-        sim_f.arrays()[0], sim_u.arrays()[0], rtol=1e-6, atol=1e-7
-    )
+def test_engine_pallas_on_cpu_raises():
+    """A forced kernel off the GPU fails loudly; it never falls into
+    interpret mode."""
+    pm, vel, _ = uniform_sphere(64, rng=np.random.default_rng(0))
+    with pytest.raises(ValueError, match="pallas_interpret"):
+        Simulation(SimConfig(backend="pallas"), pm, vel, platform="cpu")
 
 
 def test_engine_yoshida4_pallas_matches_jnp():
-    """yoshida4 through the sym Pallas path (interpret) vs the jnp engine:
-    the composition calls the force kernel 3x per step."""
+    """yoshida4 through the kernel (interpreted) vs the jnp engine: the
+    composition calls the force kernel 3x per step."""
     pm, vel, _ = uniform_sphere(128, rng=np.random.default_rng(1))
-    kw = dict(block_target=64, block_source=64, integrator="yoshida4")
+    kw = dict(integrator="yoshida4")
     sim_p = Simulation(
-        SimConfig(backend="pallas", force_mode="sym", **kw), pm, vel,
-        platform="cpu",
+        SimConfig(backend="pallas_interpret", **kw), pm, vel, platform="cpu",
     )
     sim_j = Simulation(SimConfig(backend="jnp", **kw), pm, vel, platform="cpu")
     sim_p.step(2)
     sim_j.step(2)
     np.testing.assert_allclose(
-        sim_p.arrays()[0], sim_j.arrays()[0], rtol=2e-3, atol=2e-3
+        sim_p.arrays()[0], sim_j.arrays()[0], rtol=1e-5, atol=1e-6
     )
     # the engine's work metric accounts 3 force evals per step
     assert sim_p.pair_interactions_per_step == 3 * (128 * 128 - 128)

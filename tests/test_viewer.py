@@ -17,7 +17,7 @@ from nbody3d_tpu.viewer import LiveViewer
 
 @pytest.fixture()
 def viewer():
-    config = SimConfig(backend="jnp", block_target=32, block_source=32)
+    config = SimConfig(backend="jnp")
     sim = Simulation.from_preset("uniform-sphere", config, n=64)
     v = LiveViewer(sim, width=64, height=48, steps_per_frame=2)
     server = v.make_server("127.0.0.1", 0)  # ephemeral port
@@ -118,7 +118,7 @@ def test_controls_change_live_params(viewer):
 
 
 def test_modifier_camera_controls(viewer):
-    """The interaction slivers closed in r3 (VERDICT r2 #4): dolly zoom
+    """The interaction slivers closed in r3: dolly zoom
     (alt+wheel, camera.js:112-117), FOV zoom (ctrl+wheel, :107-110), and
     the ctrl/alt partial resets (:119-128) are reachable via /control."""
     import math
@@ -159,7 +159,7 @@ def test_modifier_camera_controls(viewer):
 
 def test_page_galaxy_panel_matches_reference_bounds(viewer):
     """The served panel clamps to the reference's reachable config space
-    (index.html:68-75): bodies/galaxy in [1000, 50000] (VERDICT r2 #4)."""
+    (index.html:68-75): bodies/galaxy in [1000, 50000]."""
     _, port = viewer
     _, _, body = _get(port, "/")
     page = body.decode()
@@ -191,7 +191,7 @@ def test_export_endpoints(viewer, tmp_path):
     from nbody3d_tpu.engine import Simulation
 
     sim2 = Simulation.load(
-        str(p), SimConfig(backend="jnp", block_target=32, block_source=32),
+        str(p), SimConfig(backend="jnp"),
         platform="cpu",
     )
     assert sim2.n_real == 64
@@ -201,7 +201,7 @@ def test_step_count_survives_mid_donation_read():
     """Regression: /stats from the HTTP thread can observe the sim state
     while a scan chunk owns the donated buffers (deleted device arrays).
     step_count must serve the cached chunk-boundary value, not raise."""
-    config = SimConfig(backend="jnp", block_target=32, block_source=32)
+    config = SimConfig(backend="jnp")
     sim = Simulation.from_preset("uniform-sphere", config, n=64)
     sim.run(2, chunk=2)
     assert sim.step_count == 2
